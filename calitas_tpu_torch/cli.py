@@ -4,7 +4,9 @@ sub-command with the flags and defaults of ``calitas_tpu/cli.py``
 ``--device``.
 
     python -m calitas_tpu_torch SearchReference -i GUIDE -I ID -r REF.fa \\
-        -o OUT.txt --engine gpu
+        -o OUT.txt --engine gpu [-v VARIANTS.vcf]
+    python -m calitas_tpu_torch SearchReference --guide-file GUIDES.tsv \\
+        -r REF.fa -o OUT.txt --engine gpu
 """
 
 from __future__ import annotations
@@ -56,7 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="Additional PAM sequences. Must be lower case.")
     sr.add_argument("-r", "--ref", required=True, help="Reference genome fasta.")
     sr.add_argument("-v", "--variants", default=None,
-                    help="Optional VCF of variants (not ported yet).")
+                    help="Optional VCF of variants to search in addition to "
+                         "the reference.")
     sr.add_argument("-V", "--max-variants", type=int,
                     default=Defaults.MAX_VARIANTS_IN_CLUSTER,
                     help="Exclude clusters of more than this many variants.")

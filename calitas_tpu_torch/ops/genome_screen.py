@@ -1,12 +1,15 @@
 """Device-resident genome screening: the port of
-``calitas_tpu/ops/genome_screen.py``'s single-guide reference path.
+``calitas_tpu/ops/genome_screen.py``'s reference-pass and slot screens.
 
 A contig's raw bytes are staged to the device once and IUPAC-encoded
 there; the PAM-gate bits 4/5 are stamped into that array once per screen
-(:func:`annotate_genome_pam`); then the dual-chain DP kernel screens every
-window start ``0, step, 2*step, ...`` on both strands, and the per-chain
-flags (bit-packed) and coarse end-column ranges (uint8) come back to the
-host.
+(:func:`annotate_genome_pam`); then a DP kernel screens every window
+start ``0, step, 2*step, ...`` on both strands, and the per-chain flags
+(bit-packed) and coarse end-column ranges (uint8) come back to the host.
+One guide runs the dual-chain kernel; a group of same-length guides
+sharing a step and PAM spec runs the multi-guide kernel, one launch per
+segment for the whole group.  The variant pass's slot batches run the
+multi-guide kernel too (:func:`screen_slots_multi`).
 
 Strand handling: screening query q against revcomp(window) is equivalent
 to screening revcomp(q) against the window, so both strands run against
@@ -131,6 +134,60 @@ def _unpack_flag_bits(packed: np.ndarray, n: int) -> np.ndarray:
     return flat[..., :n].astype(bool)
 
 
+def _pack_padded(flags: torch.Tensor) -> torch.Tensor:
+    """:func:`_pack_flag_bits` of [..., n] flags zero-padded to a whole
+    byte: [..., ceil(n/8)] uint8."""
+    pad = -flags.shape[-1] % 8
+    if pad:
+        flags = torch.cat(
+            [flags, flags.new_zeros((*flags.shape[:-1], pad))], dim=-1
+        )
+    return _pack_flag_bits(flags)
+
+
+def _flags_and_coarse_ranges(best, ranges, min_scores, window):
+    """Threshold and readback form of a grid screen: ``best`` [..., 2, n]
+    against ``min_scores`` (broadcast over the chains and windows) as
+    bit-packed [..., 2, ceil(n/8)] flags; ``ranges`` [..., 2, 2, n] as
+    [..., 2, n, 2] uint8 blocks of ``range_block(window)`` columns."""
+    rb = range_block(window)
+    coarse = (
+        torch.div(ranges - 1, rb, rounding_mode="floor")
+        .clamp_(0, 255)
+        .to(torch.uint8)
+    )
+    return _pack_padded(best >= min_scores), coarse.movedim(-2, -1).contiguous()
+
+
+def _readback(dev_out: tuple, finish):
+    """``resolve()`` of device results: on CUDA each tensor is copied to
+    pinned host memory without blocking, behind a recorded event that
+    ``resolve`` waits on; ``finish`` turns the host numpy arrays into the
+    result.  The copies and the event go to the current stream of the
+    tensors' device, so a launching thread's work stays in its order."""
+    dev = dev_out[0].device
+    event = None
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            host = tuple(
+                torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in dev_out
+            )
+            for h, t in zip(host, dev_out):
+                h.copy_(t, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+    else:
+        host = dev_out
+
+    def resolve():
+        if event is not None:
+            event.synchronize()
+        return finish(*(h.numpy() for h in host))
+
+    return resolve
+
+
 class GenomeScreen:
     """Per-contig device screen: stage once, screen every window layout.
 
@@ -217,12 +274,15 @@ class GenomeScreen:
             return chains
         return np.zeros(0, dtype=bool)
 
-    def _prepare(self, genome, dp_query, dp_query_rc, pam_spec):
+    def _prepare(self, genome, dp_queries, pam_spec):
+        """The genome annotated for ``pam_spec`` (once for a whole guide
+        group), the [G, 2, Q] int32 query masks of ``dp_queries``
+        [(dp_query, dp_query_rc), ...], and whether the gate is on."""
         spec = encode_pam_spec(pam_spec)
         if spec is not None:
             genome = annotate_genome_pam(genome, spec)
         qvals = np.stack(
-            [encode_query(dp_query), encode_query(dp_query_rc)]
+            [np.stack([encode_query(q), encode_query(qrc)]) for q, qrc in dp_queries]
         ).astype(np.int32)
         return genome, qvals, spec is not None
 
@@ -236,17 +296,7 @@ class GenomeScreen:
             mismatch=s.mismatch_score, qgap=s.query_gap_score,
             tgap=s.target_gap_score, pam_gate=pam_gate,
         )
-        flags = best >= min_score
-        pad = -n % 8
-        if pad:
-            flags = torch.cat([flags, flags.new_zeros((2, pad))], dim=1)
-        rb = range_block(self.window)
-        coarse = (
-            torch.div(ranges - 1, rb, rounding_mode="floor")
-            .clamp_(0, 255)
-            .to(torch.uint8)
-        )
-        return _pack_flag_bits(flags), coarse.permute(0, 2, 1).contiguous()
+        return _flags_and_coarse_ranges(best, ranges, min_score, self.window)
 
     def screen_contig(
         self,
@@ -272,8 +322,8 @@ class GenomeScreen:
         n = len(self.window_starts(contig_len, step))
         if n == 0:
             return self._empty_result(return_chains, return_ranges)
-        genome, qvals, gate = self._prepare(genome, dp_query, dp_query_rc, pam_spec)
-        packed, ranges = self._screen_span(genome, qvals, gate, 0, n, step, min_score)
+        genome, qvals, gate = self._prepare(genome, [(dp_query, dp_query_rc)], pam_spec)
+        packed, ranges = self._screen_span(genome, qvals[0], gate, 0, n, step, min_score)
         chain_flags = _unpack_flag_bits(packed.cpu().numpy(), n)
         if return_ranges:
             return chain_flags, ranges.cpu().numpy()
@@ -305,33 +355,144 @@ class GenomeScreen:
         )
         if not spans:
             return []
-        genome, qvals, gate = self._prepare(genome, dp_query, dp_query_rc, pam_spec)
-        cuda = self.device.type == "cuda"
+        genome, qvals, gate = self._prepare(genome, [(dp_query, dp_query_rc)], pam_spec)
         out = []
         for i0, n_seg in spans:
             dev_out = self._screen_span(
-                genome, qvals, gate, i0 * step, n_seg, step, min_score
+                genome, qvals[0], gate, i0 * step, n_seg, step, min_score
             )
-            event = None
-            if cuda:
-                host = tuple(
-                    torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                    for t in dev_out
-                )
-                for h, t in zip(host, dev_out):
-                    h.copy_(t, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(self.device))
-            else:
-                host = dev_out
-
-            def resolve(host=host, event=event, n_seg=n_seg):
-                if event is not None:
-                    event.synchronize()
-                return (
-                    _unpack_flag_bits(host[0].numpy(), n_seg),
-                    host[1].numpy(),
-                )
-
-            out.append((i0, n_seg, resolve))
+            out.append((i0, n_seg, _readback(dev_out, _chain_result(n_seg))))
         return out
+
+    def _screen_span_multi(
+        self, genome, qvals, min_scores, ms_dev, pam_gate, base0, n, step
+    ):
+        """One multi-guide kernel launch over windows [base0/step, +n):
+        device tensors of bit-packed flags [G, 2, ceil(n/8)] and coarse
+        ranges [G, 2, n, 2].  ``ms_dev`` is ``min_scores`` as a [G, 1, 1]
+        tensor on the device."""
+        s = self.scorer
+        best, ranges = dp_cuda.screen_multi(
+            genome, qvals, min_scores, base0=base0, step=step, n_windows=n,
+            window=self.window, match=s.match_score,
+            mismatch=s.mismatch_score, qgap=s.query_gap_score,
+            tgap=s.target_gap_score, pam_gate=pam_gate, emit_ranges=True,
+        )
+        return _flags_and_coarse_ranges(best, ranges, ms_dev, self.window)
+
+    def screen_contig_multi_async(
+        self,
+        genome: torch.Tensor,
+        contig_len: int,
+        step: int,
+        dp_queries: list,  # [(dp_query, dp_query_rc), ...] all same length
+        min_scores: list,  # [G] per-guide qualifying thresholds
+        pam_spec=None,  # shared (dp-orientation pams, max_pam_mm, max_gap)
+        segments: int | None = None,
+    ) -> list:
+        """The multi-guide form of :meth:`screen_contig_async`: the genome
+        is annotated once for the whole group and each segment is one
+        multi-guide kernel launch.  Guides share a query length and (when
+        given) a PAM spec.  Returns ``(start_index, n_windows, resolve)``
+        triples; ``resolve()`` -> ``(chain_flags [G, 2, n_seg] bool,
+        ranges [G, 2, n_seg, 2] uint8)``.  Per guide, values equal that
+        guide's own :meth:`screen_contig_async`."""
+        spans = self.segment_spans(
+            len(self.window_starts(contig_len, step)), segments
+        )
+        if not spans or not dp_queries:
+            return []
+        genome, qvals, gate = self._prepare(genome, dp_queries, pam_spec)
+        ms = np.asarray(min_scores, dtype=np.int32)
+        ms_dev = dp_cuda.to_device(ms.reshape(-1, 1, 1), self.device)
+        out = []
+        for i0, n_seg in spans:
+            dev_out = self._screen_span_multi(
+                genome, qvals, ms, ms_dev, gate, i0 * step, n_seg, step
+            )
+            out.append((i0, n_seg, _readback(dev_out, _chain_result(n_seg))))
+        return out
+
+
+def _chain_result(n: int):
+    """``finish`` of a grid screen's readback: (chain flags [..., 2, n]
+    bool, coarse ranges [..., 2, n, 2] uint8)."""
+    return lambda packed, ranges: (_unpack_flag_bits(packed, n), ranges)
+
+
+def screen_contig_multi(
+    screen: GenomeScreen,
+    genome: torch.Tensor,
+    contig_len: int,
+    step: int,
+    dp_queries: list,  # [(dp_query, dp_query_rc), ...] all same length
+    min_scores: list,
+) -> np.ndarray:
+    """Per-chain boolean hit flags [G, 2, n_windows] for a same-length
+    guide group, in one launch, with no PAM gate (chain 0 = DP query over
+    the forward genome, 1 = its revcomp)."""
+    n = len(screen.window_starts(contig_len, step))
+    if n == 0:
+        return np.zeros((len(dp_queries), 2, 0), dtype=bool)
+    _, qvals, _ = screen._prepare(genome, dp_queries, None)
+    ms = np.asarray(min_scores, dtype=np.int32)
+    s = screen.scorer
+    best, _ = dp_cuda.screen_multi(
+        genome, qvals, ms, base0=0, step=step, n_windows=n,
+        window=screen.window, match=s.match_score, mismatch=s.mismatch_score,
+        qgap=s.query_gap_score, tgap=s.target_gap_score, pam_gate=False,
+        emit_ranges=False,
+    )
+    ms_dev = dp_cuda.to_device(ms.reshape(-1, 1, 1), best.device)
+    return _unpack_flag_bits(_pack_padded(best >= ms_dev).cpu().numpy(), n)
+
+
+def slot_batch_unit(any_kernel: bool) -> int:
+    """Row granularity of one slot batch: :data:`BATCH_UNIT` rows when a
+    group runs the CUDA kernel (the reference's block), else the flag
+    packer's 8."""
+    return BATCH_UNIT if any_kernel else 8
+
+
+def _slot_flags_multi(scorer: Scorer, tmasks: torch.Tensor, qvals, min_scores):
+    """Candidate flags of G same-length guides over one [B, T] slot batch
+    in one launch: the batch, flattened, is the window grid ``base0=0,
+    step=T, window=T`` with the gate off; flags ``(best >= min_score)
+    .any(chain)`` come back bit-packed as [G, B/8] uint8.  Slot lengths
+    are ignored, as the Pallas slot path ignores them: zero padding only
+    adds candidate end columns, so the flags are a superset that the
+    exact host finish resolves."""
+    B, T = tmasks.shape
+    s = scorer
+    best, _ = dp_cuda.screen_multi(
+        tmasks.reshape(-1), qvals, min_scores, base0=0, step=T, n_windows=B,
+        window=T, match=s.match_score, mismatch=s.mismatch_score,
+        qgap=s.query_gap_score, tgap=s.target_gap_score, pam_gate=False,
+        emit_ranges=False,
+    )
+    ms = dp_cuda.to_device(
+        np.asarray(min_scores, dtype=np.int32).reshape(-1, 1, 1), best.device
+    )
+    return _pack_padded((best >= ms).any(dim=1))
+
+
+def screen_slots_multi(
+    scorer: Scorer,
+    tmasks: np.ndarray,  # [B, T] uint8, B a multiple of 8
+    groups,  # [(qvals [G, 2, Q] int32, min_scores [G]), ...]
+    device,
+) -> list:
+    """Screen one slot batch for several same-length guide groups: the
+    batch goes to the device once, and each group costs one launch plus
+    one bit-packed readback.  Returns one zero-arg resolver per group;
+    resolving waits for that group's readback and returns [G, B] bool
+    flags."""
+    tm = dp_cuda.to_device(tmasks.astype(np.uint8, copy=False), device)
+    B = tm.shape[0]
+    return [
+        _readback(
+            (_slot_flags_multi(scorer, tm, qvals, min_scores),),
+            lambda packed: _unpack_flag_bits(packed, B),
+        )
+        for qvals, min_scores in groups
+    ]

@@ -9,8 +9,11 @@ segments' candidate windows with the batched native aligner
 materialized, with the reference's exact window semantics, so the output
 equals the host-only engine's row for row.
 
-Multi-guide runs screen guide by guide through the dual-chain kernel (the
-fused multi-guide kernel is later work); the tables are identical.
+Guides of one shape (DP-query length, window step and PAM spec) form a
+group: a group of two or more runs the multi-guide kernel, one launch
+per segment for the whole group, and a single guide runs the dual-chain
+kernel.  Each segment's readback resolves once; every guide of the group
+reads its own slice of that one result.
 
 Device, build and launch errors propagate: nothing here degrades to the
 host engine.
@@ -119,43 +122,77 @@ def _dp_query_and_pam_spec(guide: Guide, align_kwargs: dict):
     return dq, pspec
 
 
+class _GuideSlice:
+    """Guide ``gi``'s view of a group segment's readback: the group's
+    Future resolves once, and each guide reads its own ``[gi]``."""
+
+    def __init__(self, fut, gi: int):
+        self._fut = fut
+        self._gi = gi
+
+    def result(self):
+        chain_flags, ranges = self._fut.result()
+        return chain_flags[self._gi], ranges[self._gi]
+
+
 def _search_contig(
     fasta, name, contig_len, genome, tasks, aligner, screen, window_size,
     threads, swallow_errors, hit_spec, align_kwargs,
 ):
-    # Launch every guide's segmented screen before finishing any: the
-    # device runs all guides' segments back to back while the host pool
-    # finishes earlier ones.
-    dispatched = []
-    for task in tasks:
+    # Launch every group's segmented screen before finishing any: the
+    # device runs all segments back to back while the host pool finishes
+    # earlier ones.  Each segment's readback is submitted once to the
+    # ordered resolver pool; its Future is the one shared result.
+    groups: dict[tuple, list] = {}
+    for ti, task in enumerate(tasks):
         dq, pspec = _dp_query_and_pam_spec(task.guide, align_kwargs)
-        min_score = aligner.min_guide_score(
-            task.guide, align_kwargs["max_guide_diffs"]
+        groups.setdefault((len(dq), task.step_size, pspec), []).append(
+            (ti, task, dq)
         )
-        segs = screen.screen_contig_async(
-            genome, contig_len, task.step_size, dq, revcomp(dq), min_score,
-            pam_spec=pspec,
-        )
-        dispatched.append((task, segs))
-    for task, segs in dispatched:
-        starts = screen.window_starts(contig_len, task.step_size)
-        yield from _finish_segments(
-            segs, starts, name, task, aligner, window_size, threads,
-            swallow_errors, hit_spec, align_kwargs,
-        )
+    resolver = ThreadPoolExecutor(
+        max_workers=_RESOLVERS, thread_name_prefix="calitas-resolve"
+    )
+    try:
+        seg_futs: dict[int, list] = {}  # task index -> [(i0, n_seg, fut)]
+        for (_q, step, pspec), group in groups.items():
+            mss = [
+                aligner.min_guide_score(t.guide, align_kwargs["max_guide_diffs"])
+                for _ti, t, _dq in group
+            ]
+            if len(group) >= 2:
+                segs = screen.screen_contig_multi_async(
+                    genome, contig_len, step,
+                    [(dq, revcomp(dq)) for _ti, _t, dq in group], mss,
+                    pam_spec=pspec,
+                )
+                futs = [(i0, n, resolver.submit(res)) for i0, n, res in segs]
+                for gi, (ti, _t, _dq) in enumerate(group):
+                    seg_futs[ti] = [(i0, n, _GuideSlice(f, gi)) for i0, n, f in futs]
+            else:
+                [(ti, _t, dq)] = group
+                segs = screen.screen_contig_async(
+                    genome, contig_len, step, dq, revcomp(dq), mss[0],
+                    pam_spec=pspec,
+                )
+                seg_futs[ti] = [(i0, n, resolver.submit(res)) for i0, n, res in segs]
+        for ti, task in enumerate(tasks):
+            starts = screen.window_starts(contig_len, task.step_size)
+            yield from _finish_segments(
+                seg_futs[ti], starts, name, task, aligner, window_size,
+                threads, swallow_errors, hit_spec, align_kwargs,
+            )
+    finally:
+        resolver.shutdown(wait=False, cancel_futures=True)
 
 
 def _finish_segments(
-    segs, starts, name, task, aligner, window_size, threads, swallow_errors,
-    hit_spec, align_kwargs,
+    seg_futs, starts, name, task, aligner, window_size, threads,
+    swallow_errors, hit_spec, align_kwargs,
 ):
     """Consume a segmented contig screen: the candidate stream takes each
-    segment's flags in window order, so the worker pool finishes segment N
-    while the device screens segment N+1.
-
-    Readbacks resolve on a small ordered thread pool ahead of the stream.
-    Each segment's ``resolve`` is submitted exactly once; its Future is the
-    one shared result every reader of that segment waits on."""
+    segment's ``(chain_flags [2, n_seg], ranges [2, n_seg, 2])`` from its
+    Future in window order, so the worker pool finishes segment N while
+    the device screens segment N+1."""
     from calitas_tpu.parallel.host_pool import (
         _mp_finish_chunk,
         make_finish_spec,
@@ -163,15 +200,10 @@ def _finish_segments(
     )
 
     stats = {"cand": 0}
-    resolver = ThreadPoolExecutor(
-        max_workers=min(_RESOLVERS, max(1, len(segs))),
-        thread_name_prefix="calitas-resolve",
-    )
-    futs = [resolver.submit(resolve) for _i0, _n, resolve in segs]
     rb = range_block(window_size)
 
     def cand_stream():
-        for (i0, _n_seg, _resolve), fut in zip(segs, futs):
+        for i0, _n_seg, fut in seg_futs:
             chain_flags, cranges = fut.result()
             hit_idx = np.nonzero(chain_flags.any(axis=0))[0]
             n_cand = len(hit_idx)
@@ -204,19 +236,16 @@ def _finish_segments(
         swallow_errors=swallow_errors,
         **hit_spec,
     )
-    try:
-        for (_tag, c, bstarts, *_rest), rows in map_items_mp(
-            cand_stream(), spec, threads,
-            worker_fn=_mp_finish_chunk,
-            to_payload=lambda t: t,
-            chunk=1,
-            swallow_errors=swallow_errors,
-            logger=logger,
-        ):
-            if len(rows):
-                yield task, c, int(bstarts[0]) + 1, rows
-    finally:
-        resolver.shutdown(wait=False, cancel_futures=True)
+    for (_tag, c, bstarts, *_rest), rows in map_items_mp(
+        cand_stream(), spec, threads,
+        worker_fn=_mp_finish_chunk,
+        to_payload=lambda t: t,
+        chunk=1,
+        swallow_errors=swallow_errors,
+        logger=logger,
+    ):
+        if len(rows):
+            yield task, c, int(bstarts[0]) + 1, rows
     logger.info(
         "Screen %s/%s: %d of %d windows are candidates (%.2f%%).",
         name, task.guide_id, stats["cand"], len(starts),

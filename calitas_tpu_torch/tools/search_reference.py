@@ -10,8 +10,14 @@ Port of ``calitas_tpu/tools/search_reference.py``.  Engines:
     through its plain PyTorch version.
   - ``auto``: ``gpu`` when ``torch.cuda.is_available()``, else ``host``.
 
+With ``variants`` a second pass aligns the VCF's variant haplotype
+windows.  On the gpu engine the variant feeds (native window builder plus
+the device slot screen) start on their own threads before the reference
+pass and are closed on any error in either pass; the host engine runs the
+reference package's host passes as they are.
+
 Hits are deduplicated, sorted and written as the 34-column table by the
-reference package's finalizer.  The variant (VCF) pass is not ported yet.
+reference package's finalizer.
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ from calitas_tpu.io.fasta import IndexedFasta, extract_dictionary
 from calitas_tpu.search.hits import HitBuilder, RenderedBlock
 from calitas_tpu.tools.search_reference import (
     _finalize,
-    _reference_pass,
+    _run_both_passes,
+    _variant_pass,
     core_parameters_string,
 )
 from calitas_tpu.utils import ProgressLogger
@@ -67,8 +74,6 @@ def run(
     With ``profile_dir`` a ``torch.profiler`` trace of the run is written
     there as ``trace.json``."""
     run_start = time.perf_counter()
-    if variants is not None:
-        raise NotImplementedError("variant pass: ROADMAP Queue 1 item 6")
     if ref is None:
         raise ValueError("SearchReference requires a reference FASTA (ref=)")
     screen_device = resolve_engine(engine, device)
@@ -126,7 +131,7 @@ def run(
         guide_id=specs[0][0],
         guide=specs[0][2],
         ref=ref_file,
-        vcf=None,
+        vcf=variants,
         aligner_id="CALITAS:SearchReference",
         arguments=arguments,
     )
@@ -147,21 +152,28 @@ def run(
         )
         return window_size - window_overlap
 
+    # Parse and index the VCF once per run (SearchReference.scala:227-231).
+    vcf_index = None
+    if variants is not None:
+        from calitas_tpu.io.vcf import VcfIndex
+
+        vcf_index = VcfIndex(variants)
+
     logger.info("Aligning to reference genome without variants.")
     hits: list = []
     if screen_device is None:
         progress = ProgressLogger(logger, noun="windows", verb="Processed", unit=25_000)
-        _reference_pass(
-            chrom, hits, specs, builders, aligner, ref_file, window_size,
-            step_for, False, threads, align_kwargs, progress, None, logger,
-            None, None, None,
+        _run_both_passes(
+            chrom, hits, specs, builders, aligner, ref_file, vcf_index,
+            max_variants, window_size, step_for, False, threads, align_kwargs,
+            progress, logger,
         )
     else:
-        _screened_reference_pass(
-            chrom, hits, specs, base_builder, aligner, ref_file, window_size,
-            step_for, threads, align_kwargs, screen_device,
+        _screened_passes(
+            chrom, hits, specs, builders, aligner, ref_file, vcf_index,
+            max_variants, window_size, step_for, threads, align_kwargs,
+            screen_device,
         )
-    logger.info("Reference windows processed.")
     try:
         _finalize(
             hits, max_overlap, dictionary, output, None, run_start, specs,
@@ -172,6 +184,78 @@ def run(
             profiler.stop()
             Path(profile_dir).mkdir(parents=True, exist_ok=True)
             profiler.export_chrome_trace(str(Path(profile_dir) / "trace.json"))
+
+
+def _screened_passes(
+    chrom, hits, specs, builders, aligner, ref_file, vcf_index, max_variants,
+    window_size, step_for, threads, align_kwargs, device,
+):
+    """Both passes on the device screen.  The variant feeds start before
+    the reference pass so the window builder and slot screen overlap it;
+    an error in either pass closes every feed still producing."""
+    feeds = _start_variant_feeds(
+        chrom, specs, aligner, ref_file, vcf_index, max_variants,
+        align_kwargs, device,
+    )
+    try:
+        _screened_reference_pass(
+            chrom, hits, specs, builders[specs[0][0]], aligner, ref_file,
+            window_size, step_for, threads, align_kwargs, device,
+        )
+        logger.info("Reference windows processed.")
+        if feeds:
+            _variant_pass(
+                feeds, hits, specs, builders, aligner, threads, align_kwargs,
+                logger,
+            )
+            logger.info("Variant windows processed.")
+    except BaseException:
+        for _gspecs, feed in feeds:
+            feed.close()
+        raise
+
+
+def _start_variant_feeds(
+    chrom, specs, aligner, ref_file, vcf_index, max_variants, align_kwargs,
+    device,
+):
+    """The variant pass's feeds, one per guide padding group, each already
+    producing on its own thread: ``[(gspecs, BlockFeed)]``, empty without
+    a VCF.  Guides of one padding see one window stream
+    (SearchReference.scala:217-256), built once and screened for every
+    guide of the group."""
+    if vcf_index is None:
+        return []
+    from calitas_tpu.parallel.host_pool import BlockFeed
+    from calitas_tpu.search.variants import variant_window_iterator
+    from calitas_tpu_torch.search.variants import screened_variant_windows_multi
+
+    max_guide_diffs = align_kwargs["max_guide_diffs"]
+    max_gaps = align_kwargs["max_gaps_between_guide_and_pam"]
+    groups: dict[int, list] = {}
+    for spec in specs:
+        padding = spec[2].length - 1 + max_guide_diffs + max_gaps
+        groups.setdefault(padding, []).append(spec)
+    feeds = []
+    try:
+        for padding, gspecs in groups.items():
+            vwindows = variant_window_iterator(
+                ref_file, vcf_index, chrom, padding, max_variants, blocks=True,
+            )
+            flagged = screened_variant_windows_multi(
+                vwindows, aligner,
+                [
+                    (gid, g, aligner.min_guide_score(g, max_guide_diffs))
+                    for gid, _, g in gspecs
+                ],
+                device=device,
+            )
+            feeds.append((gspecs, BlockFeed(flagged, 8192, depth=2)))
+    except BaseException:
+        for _gspecs, feed in feeds:
+            feed.close()
+        raise
+    return feeds
 
 
 def _screened_reference_pass(

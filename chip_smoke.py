@@ -6,7 +6,8 @@ It imports nothing of JAX.  Phases, each raising on failure:
 
 1. Device: a CUDA device is required; prints the card's name and power
    limit and whether the native host finish library loaded.
-2. Build: compiles the CUDA screen kernel from ``calitas_tpu_torch/csrc``.
+2. Build: compiles the CUDA screen kernels from ``calitas_tpu_torch/csrc``,
+   one nvcc per source, started together.
 3. Kernel vs plain: on a seeded 40 Mb annotated genome with planted guide
    sites, the kernel's best scores and end-column ranges must equal its
    plain PyTorch version bit for bit (query lengths 20/24/48, PAM gate on
@@ -18,10 +19,32 @@ It imports nothing of JAX.  Phases, each raising on failure:
    benchmarks/golden/config3.txt.gz with time_stamp and aligner_version
    blanked, the kernel must have launched at least once per segment, and
    the plain version never on the card.
+5. Multi-guide kernel vs plain: on phase 3's genome, the multi-guide
+   kernel's best scores and ranges must equal its plain PyTorch version
+   bit for bit on window grids (G 1/4/17, Q 20/24/48, gate on and off,
+   windows 40/64/1000/1003) and on slot batches (B 8192, T 64/128/512, gate
+   off); times the kernel at G 4/8/16 and the plain version at G 4 on one
+   segment of the main path's shape.
+6. Golden config 5s: run_configs.config5s's four same-length guides over
+   its 10 Mb contig, as a ``--guide-file`` through the port's CLI; the
+   table must equal benchmarks/golden/config5s.txt.gz, the multi-guide
+   kernel must have launched at least once per segment, the dual kernel
+   and the plain versions never.  Times the fused screen against four
+   dual-kernel launches at that shape.
+7. Golden config 4: run_configs.config4's 5 Mb contig and 2,000 SNVs,
+   prepared with PrepareVcf, through the CLI with ``-v``; the table must
+   equal benchmarks/golden/config4.txt and the slot-mode multi-guide
+   kernel must have launched.
+8. Variant pass at scale: config 3's 40 Mb contig with 160,000 seeded
+   SNVs (one per 250 bases) through the CLI with ``-v``, on the card and
+   with ``--device cpu`` (the plain versions); the tables must be
+   identical.  Prints each pass's wall time and the variant-window count.
 
-The line before the last is a JSON object describing the kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, without
-that line, when there is no CUDA device or the repository is missing.
+The line before the last is a JSON object describing the kernels (the
+launch counts are those of the main paths: phase 4 for the dual kernel,
+phases 6 and 7 for the multi-guide kernel); the last line is
+``{"ok": true, "device": {...}}``.  Exits non-zero, without that line,
+when there is no CUDA device or the repository is missing.
 """
 
 from __future__ import annotations
@@ -29,6 +52,7 @@ from __future__ import annotations
 import gzip
 import importlib.util
 import json
+import logging
 import subprocess
 import sys
 import tempfile
@@ -38,6 +62,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 GUIDE = "CTTGCCCCACAGGGCAGTAAnrg"
 CONTIG = 40_000_000  # golden config 3's chr21-scale contig
+DEFAULT_STEP = 1000 - (len(GUIDE) + 5 + 3 - 1)  # the CLI's step at -w 1000 -d 5 -g 3
 
 
 def log(msg: str) -> None:
@@ -88,7 +113,8 @@ def cuda_time_ms(torch, fn, reps: int) -> float:
 
 
 def kernel_vs_plain(torch, np, dp_cuda, dp_screen, gs, scorer, device):
-    """Phase 3: returns (max_abs_err over all cases, kernel ms, plain ms)."""
+    """Phase 3: returns (max_abs_err over all cases, kernel ms, plain ms,
+    the annotated genome)."""
     rng = np.random.default_rng(11)
     protos = {
         20: GUIDE[:20],
@@ -153,7 +179,7 @@ def kernel_vs_plain(torch, np, dp_cuda, dp_screen, gs, scorer, device):
     log(f"[kernel] main-path shape (window 1000, Q 20, gate on, one segment of "
         f"{kw['n_windows']} windows of the 40 Mb contig): kernel {kernel_ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms")
-    return max_err, kernel_ms, plain_ms
+    return max_err, kernel_ms, plain_ms, genome
 
 
 def norm_rows(text: str) -> list:
@@ -170,18 +196,48 @@ def norm_rows(text: str) -> list:
     return out
 
 
-def main_path(torch, dp_cuda, dp_screen, gs, scorer, device, tmp: Path) -> int:
-    """Phase 4: golden config 3 through the port's CLI; returns the
-    kernel launches of that run."""
-    from calitas_tpu.io.fasta import IndexedFasta
-    from calitas_tpu_torch import cli
-
+def load_configs(tmp: Path):
+    """benchmarks/run_configs.py with its output directory set to ``tmp``
+    (its build_ref reuses a reference already built there)."""
     spec = importlib.util.spec_from_file_location(
         "run_configs", ROOT / "benchmarks" / "run_configs.py"
     )
     configs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(configs)
     configs.OUT = tmp
+    return configs
+
+
+def golden_rows(name: str) -> list:
+    path = ROOT / "benchmarks" / "golden" / name
+    data = path.read_bytes()
+    return norm_rows((gzip.decompress(data) if name.endswith(".gz") else data).decode())
+
+
+def assert_same_table(got: list, want: list, what: str) -> None:
+    if got != want:
+        bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w) if len(got) == len(want) else None
+        raise AssertionError(
+            f"{what}: {len(got)} vs {len(want)} lines, first differing line {bad}"
+        )
+
+
+def run_cli(torch, cli, argv: list) -> float:
+    """The port's CLI in this process; returns its wall seconds."""
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise RuntimeError(f"SearchReference {' '.join(argv)} exited {rc}")
+    return time.perf_counter() - t0
+
+
+def main_path(torch, dp_cuda, dp_screen, gs, scorer, device, configs, tmp: Path) -> int:
+    """Phase 4: golden config 3 through the port's CLI; returns the
+    kernel launches of that run."""
+    from calitas_tpu.io.fasta import IndexedFasta
+    from calitas_tpu_torch import cli
+
     t0 = time.perf_counter()
     ref = configs.build_ref(CONTIG, 3, "c3chr21")
     log(f"[config3] reference built in {time.perf_counter() - t0:.3f} s")
@@ -189,29 +245,17 @@ def main_path(torch, dp_cuda, dp_screen, gs, scorer, device, tmp: Path) -> int:
     argv = ["SearchReference", "-i", GUIDE, "-I", "bench", "-r", str(ref),
             "-o", str(out), "-d", "5", "-p", "1", "--engine", "gpu"]
 
-    dp_cuda.launches = 0
+    dp_cuda.reset_launches()
     dp_screen.reference_calls["cuda"] = 0
-    t0 = time.perf_counter()
-    rc = cli.main(argv)
-    torch.cuda.synchronize()
-    e2e = time.perf_counter() - t0
-    launches = dp_cuda.launches
+    e2e = run_cli(torch, cli, argv)
+    launches = dp_cuda.launches["screen_dual"]
     plain_on_card = dp_screen.reference_calls["cuda"]
-    if rc != 0:
-        raise RuntimeError(f"SearchReference exited {rc}")
 
     got = norm_rows(out.read_text())
-    want = norm_rows(
-        gzip.decompress((ROOT / "benchmarks/golden/config3.txt.gz").read_bytes()).decode()
-    )
-    if got != want:
-        bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w) if len(got) == len(want) else None
-        raise AssertionError(
-            f"config3 table differs from golden: {len(got)} vs {len(want)} lines, "
-            f"first differing line {bad}"
-        )
+    want = golden_rows("config3.txt.gz")
+    assert_same_table(got, want, "config3 table differs from golden")
     fasta = IndexedFasta(ref)
-    step = 1000 - (len(GUIDE) + 5 + 3 - 1)  # the CLI's step at -d 5 -g 3
+    step = DEFAULT_STEP
     n = len(gs.GenomeScreen(scorer, device, window=1000).window_starts(CONTIG, step))
     n_segments = len(gs.GenomeScreen(scorer, device, window=1000).segment_spans(n))
     log(f"[config3] table == golden ({len(got) - 1} rows); kernel launches "
@@ -244,6 +288,283 @@ def main_path(torch, dp_cuda, dp_screen, gs, scorer, device, tmp: Path) -> int:
     return launches
 
 
+def guide_qvals(np, protos: list) -> "np.ndarray":
+    """[G, 2, Q] int32 chain-A and chain-B query masks of the protospacers."""
+    from calitas_tpu.core.sequence import encode_query, revcomp
+
+    return np.stack(
+        [np.stack([encode_query(p), encode_query(revcomp(p))]) for p in protos]
+    ).astype(np.int32)
+
+
+def multi_vs_plain(torch, np, dp_cuda, dp_screen, gs, scorer, genome, screen):
+    """Phase 5: returns (max_abs_err over all cases, {G: kernel ms},
+    plain ms at G=4)."""
+    rng = np.random.default_rng(12)
+
+    def protos(G, Q):
+        out = [GUIDE[:20]] if Q == 20 else []
+        return out + ["".join("ACGT"[i] for i in rng.integers(0, 4, Q))
+                      for _ in range(G - len(out))]
+
+    sk = dict(match=scorer.match_score, mismatch=scorer.mismatch_score,
+              qgap=scorer.query_gap_score, tgap=scorer.target_gap_score)
+
+    def compare(what, genome, qvals, mss, kw):
+        got = dp_cuda.screen_multi(genome, qvals, mss, **kw)
+        want = dp_screen.screen_multi_reference(genome, qvals, mss, **kw)
+        torch.cuda.synchronize()
+        pairs = [(got[0], want[0])] + ([(got[1], want[1])] if kw["emit_ranges"] else [])
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) for g, w in pairs)
+        same = all(torch.equal(g, w) for g, w in pairs)
+        flagged = int((got[0] >= torch.as_tensor(mss, device=got[0].device)
+                       .reshape(-1, 1, 1)).any(1).sum())
+        log(f"[multi] {what} windows={kw['n_windows']} flagged={flagged} "
+            f"bit-identical={same} max_abs_err={err}")
+        if not same:
+            raise AssertionError(f"multi kernel != plain: {what}")
+        return err
+
+    max_err = 0
+    grid_cases = [  # (G, Q, window, gate, max windows compared)
+        (1, 20, 1000, True, None), (4, 20, 1000, True, None),
+        (17, 20, 1003, False, None), (4, 24, 40, True, 200_000),
+        (17, 24, 1003, True, None), (4, 48, 1003, False, None),
+        (17, 48, 64, True, 200_000), (1, 48, 1000, False, None),
+    ]
+    for G, Q, window, gate, cap in grid_cases:
+        step = window - (Q + 3 + 5 + 3 - 1)
+        n = len(screen.window_starts(CONTIG, step))
+        if cap is not None:
+            n = min(n, cap)
+        mss = np.array([60 * Q - (3 + g % 4) * 122 for g in range(G)], np.int32)
+        kw = dict(base0=0, step=step, n_windows=n, window=window,
+                  pam_gate=gate, emit_ranges=True, **sk)
+        max_err = max(max_err, compare(
+            f"grid G={G} Q={Q} window={window} gate={gate}",
+            genome, guide_qvals(np, protos(G, Q)), mss, kw))
+
+    masks = genome & 15
+    for G, T in ((4, 64), (17, 128), (1, 512)):
+        B = 8192
+        starts = torch.as_tensor(rng.integers(0, CONTIG - T, B), device=genome.device)
+        lens = torch.as_tensor(rng.integers(T // 2, T + 1, B), device=genome.device)
+        cols = torch.arange(T, device=genome.device)
+        slots = masks[starts[:, None] + cols] * (cols < lens[:, None])
+        Q = 20
+        qvals = guide_qvals(np, protos(G, Q))
+        mss = np.array([60 * Q - (3 + g % 4) * 122 for g in range(G)], np.int32)
+        kw = dict(base0=0, step=T, n_windows=B, window=T, pam_gate=False,
+                  emit_ranges=False, **sk)
+        max_err = max(max_err, compare(
+            f"slots G={G} B={B} T={T}", slots.reshape(-1).contiguous(), qvals, mss, kw))
+        flags = gs._slot_flags_multi(scorer, slots, qvals, mss)
+        if not torch.equal(flags.cpu(), gs._slot_flags_multi(scorer, slots.cpu(), qvals, mss)):
+            raise AssertionError(f"slot flags differ from the plain version at T={T}")
+
+    step = DEFAULT_STEP
+    n = screen.segment_spans(len(screen.window_starts(CONTIG, step)))[0][1]
+    kernel_ms = {}
+    for G in (4, 8, 16):
+        qvals = guide_qvals(np, protos(G, 20))
+        mss = np.full(G, 60 * 20 - 5 * 122, np.int32)
+        kw = dict(base0=0, step=step, n_windows=n, window=1000, pam_gate=True,
+                  emit_ranges=True, **sk)
+        kernel_ms[G] = cuda_time_ms(
+            torch, lambda: dp_cuda.screen_multi(genome, qvals, mss, **kw), 20)
+        if G == 4:
+            plain_ms = cuda_time_ms(
+                torch, lambda: dp_screen.screen_multi_reference(genome, qvals, mss, **kw), 2)
+    log(f"[multi] main-path shape (window 1000, Q 20, gate on, ranges on, one "
+        f"segment of {n} windows of the 40 Mb contig): kernel "
+        + ", ".join(f"G={G} {ms:.4f} ms" for G, ms in kernel_ms.items())
+        + f"; plain G=4 {plain_ms:.4f} ms")
+    return max_err, kernel_ms, plain_ms
+
+
+def config5s(torch, np, dp_cuda, dp_screen, gs, scorer, device, configs, tmp: Path) -> int:
+    """Phase 6: golden config 5s through the port's CLI with a guide file;
+    returns the multi-guide kernel's launches in that run."""
+    from calitas_tpu_torch import cli
+
+    n_bases = 10_000_000
+    t0 = time.perf_counter()
+    ref = configs.build_ref(n_bases, 5, "c5ref")
+    rng = np.random.default_rng(5)  # run_configs.config5s's guides
+    guides = [("g%d" % i, "".join(rng.choice(list("ACGT"), 20)) + "nrg")
+              for i in range(4)]
+    guides[0] = ("g0", GUIDE)
+    gfile = tmp / "config5s_guides.tsv"
+    gfile.write_text("guide_id\tguide\n" + "".join(f"{i}\t{g}\n" for i, g in guides))
+    log(f"[config5s] reference built in {time.perf_counter() - t0:.3f} s; guides "
+        + " ".join(g for _i, g in guides))
+    out = tmp / "config5s.txt"
+    dp_cuda.reset_launches()
+    dp_screen.reference_calls["cuda"] = 0
+    e2e = run_cli(torch, cli, ["SearchReference", "--guide-file", str(gfile), "-r",
+                               str(ref), "-o", str(out), "--engine", "gpu"])
+    launches = dict(dp_cuda.launches)
+    plain_on_card = dp_screen.reference_calls["cuda"]
+    got = norm_rows(out.read_text())
+    assert_same_table(got, golden_rows("config5s.txt.gz"), "config5s table differs from golden")
+    screen = gs.GenomeScreen(scorer, device, window=1000)
+    n = len(screen.window_starts(n_bases, DEFAULT_STEP))
+    n_segments = len(screen.segment_spans(n))
+    log(f"[config5s] table == golden ({len(got) - 1} rows); multi-guide kernel "
+        f"launches {launches['screen_multi']} (segments {n_segments}); dual kernel "
+        f"launches {launches['screen_dual']}; plain versions on the card {plain_on_card}; "
+        f"end to end {e2e:.3f} s, {len(guides) * n_bases / e2e:.6g} guide-bases/s")
+    if launches["screen_multi"] < n_segments:
+        raise AssertionError(f"multi kernel launched {launches['screen_multi']} times, "
+                             f"< {n_segments} segments")
+    if launches["screen_dual"] != 0 or plain_on_card != 0:
+        raise AssertionError("config5s took the dual kernel or the plain version")
+
+    # The fused screen against four dual launches at this shape.
+    from calitas_tpu.io.fasta import IndexedFasta
+    from calitas_tpu.core.sequence import revcomp
+
+    genome = gs.annotate_genome_pam(
+        screen.stage(IndexedFasta(ref).get_bases("chr21")),
+        gs.encode_pam_spec((("nrg",), 1, 3)),
+    )
+    protos = [g[:-3] for _i, g in guides]
+    qvals = guide_qvals(np, protos)
+    ms = 60 * 20 - 5 * 122
+    sk = dict(match=scorer.match_score, mismatch=scorer.mismatch_score,
+              qgap=scorer.query_gap_score, tgap=scorer.target_gap_score)
+    grid = dict(base0=0, step=DEFAULT_STEP, n_windows=n, window=1000, pam_gate=True, **sk)
+    fused_ms = cuda_time_ms(torch, lambda: dp_cuda.screen_multi(
+        genome, qvals, np.full(4, ms, np.int32), emit_ranges=True, **grid), 20)
+    dual_ms = cuda_time_ms(torch, lambda: [
+        dp_cuda.screen_dual(genome, qvals[g], min_score=ms, **grid) for g in range(4)
+    ], 20)
+    log(f"[config5s] screen kernels at this shape ({n} windows): fused G=4 "
+        f"{fused_ms:.4f} ms, four dual launches {dual_ms:.4f} ms")
+    return launches["screen_multi"]
+
+
+def config4(torch, np, dp_cuda, dp_screen, configs, tmp: Path) -> int:
+    """Phase 7: golden config 4 (5 Mb + 2,000 PrepareVcf'd SNVs) through
+    the port's CLI with -v; returns the multi-guide kernel's launches."""
+    from calitas_tpu.tools import prepare_vcf
+    from calitas_tpu_torch import cli
+
+    n = 5_000_000
+    t0 = time.perf_counter()
+    ref = configs.build_ref(n, 4, "c4chr21")
+    rng = np.random.default_rng(4)  # run_configs.config4's VCF, as it writes it
+    raw_vcf = tmp / "raw.vcf"
+    with open(raw_vcf, "w") as fh:
+        fh.write("##fileformat=VCFv4.2\n")
+        fh.write('##INFO=<ID=AF,Number=A,Type=Float,Description="AF">\n')
+        fh.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        for pos in sorted(rng.integers(1000, n - 1000, size=2000)):
+            ref_b = rng.choice(list("ACGT"))
+            alt = rng.choice([c for c in "ACGT" if c != ref_b])
+            af = float(rng.uniform(0.01, 0.5))
+            fh.write(f"chr21\t{pos}\trs{pos}\t{ref_b}\t{alt}\t50\tPASS\tAF={af:.3f}\n")
+    prepared = tmp / "prepared.vcf"
+    prepare_vcf.run(input=[raw_vcf], output=prepared, add_chr_prefix=False)
+    log(f"[config4] reference and VCF built in {time.perf_counter() - t0:.3f} s")
+    out = tmp / "config4.txt"
+    dp_cuda.reset_launches()
+    dp_screen.reference_calls["cuda"] = 0
+    e2e = run_cli(torch, cli, ["SearchReference", "-i", GUIDE, "-I", "bench", "-r",
+                               str(ref), "-v", str(prepared), "-o", str(out),
+                               "--engine", "gpu"])
+    launches = dict(dp_cuda.launches)
+    plain_on_card = dp_screen.reference_calls["cuda"]
+    got = norm_rows(out.read_text())
+    assert_same_table(got, golden_rows("config4.txt"), "config4 table differs from golden")
+    log(f"[config4] table == golden ({len(got) - 1} rows); slot-mode multi-guide kernel "
+        f"launches {launches['screen_multi']}; dual kernel launches "
+        f"{launches['screen_dual']}; plain versions on the card {plain_on_card}; "
+        f"end to end {e2e:.3f} s")
+    if launches["screen_multi"] < 1 or launches["screen_dual"] < 1:
+        raise AssertionError(f"config4 kernel launches {launches}: each kernel must run")
+    if plain_on_card != 0:
+        raise AssertionError("config4 ran the plain version on the card")
+    return launches["screen_multi"]
+
+
+class PassClock(logging.Handler):
+    """perf_counter readings of the SearchReference log lines that close
+    each pass."""
+
+    MARKS = ("Aligning to reference genome without variants.",
+             "Reference windows processed.", "Variant windows processed.")
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.at = {}
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if msg in self.MARKS:
+            self.at[msg] = time.perf_counter()
+
+    def passes(self):
+        a, r, v = (self.at[m] for m in self.MARKS)
+        return r - a, v - r
+
+
+def variants_at_scale(torch, np, dp_cuda, configs, tmp: Path) -> None:
+    """Phase 8: 40 Mb + 160,000 SNVs, on the card and through the plain
+    versions on the CPU; the two tables must be identical."""
+    from calitas_tpu.io.fasta import IndexedFasta
+    from calitas_tpu.io.vcf import VcfIndex
+    from calitas_tpu.search.variants import _WindowBlock, variant_window_iterator
+    from calitas_tpu_torch import cli
+
+    ref = configs.build_ref(CONTIG, 3, "c3chr21")
+    bases = IndexedFasta(ref).get_bases("chr21")
+    rng = np.random.default_rng(160_000)
+    n_snv = CONTIG // 250  # one per 250 bases: 160,000 on the 40 Mb contig
+    pos = np.arange(n_snv, dtype=np.int64) * 250 + rng.integers(1, 251, n_snv)
+    vcf = tmp / "snv160k.vcf"
+    with open(vcf, "w") as fh:
+        fh.write("##fileformat=VCFv4.2\n")
+        fh.write('##INFO=<ID=AF,Number=A,Type=Float,Description="AF">\n')
+        fh.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        alt_k = rng.integers(1, 4, n_snv)
+        afs = rng.uniform(0.01, 0.5, n_snv)
+        for p, k, af in zip(pos.tolist(), alt_k.tolist(), afs.tolist()):
+            ref_b = chr(bases[p - 1])
+            alt = "ACGT"[("ACGT".index(ref_b) + k) % 4]
+            fh.write(f"chr21\t{p}\t.\t{ref_b}\t{alt}\t50\tPASS\tAF={af:.3f}\n")
+    padding = len(GUIDE) - 1 + 5 + 3
+    n_windows = sum(
+        b.n if isinstance(b, _WindowBlock) else 1 for b in variant_window_iterator(
+            IndexedFasta(ref), VcfIndex(vcf), None, padding, 16, blocks=True)
+    )
+    argv = ["SearchReference", "-i", GUIDE, "-I", "bench", "-r", str(ref), "-v",
+            str(vcf), "-d", "5", "-p", "1", "--engine", "gpu"]
+    clock = PassClock()
+    logging.getLogger("calitas_tpu_torch.SearchReference").addHandler(clock)
+    try:
+        dp_cuda.reset_launches()
+        e2e = run_cli(torch, cli, [*argv, "-o", str(tmp / "v_cuda.txt")])
+        launches = dict(dp_cuda.launches)
+        ref_s, var_s = clock.passes()
+        t0 = time.perf_counter()
+        run_cli(torch, cli, [*argv, "-o", str(tmp / "v_cpu.txt"), "--device", "cpu"])
+        cpu_s = time.perf_counter() - t0
+    finally:
+        logging.getLogger("calitas_tpu_torch.SearchReference").removeHandler(clock)
+    got = norm_rows((tmp / "v_cuda.txt").read_text())
+    assert_same_table(got, norm_rows((tmp / "v_cpu.txt").read_text()),
+                      "variant run: card and plain tables differ")
+    n_var_rows = sum(1 for r in got[1:] if r[got[0].index("variant_vcf")])
+    log(f"[variants] {CONTIG} bases + {n_snv} SNVs: tables identical on the card and "
+        f"--device cpu ({len(got) - 1} rows, {n_var_rows} with variants); "
+        f"{n_windows} variant windows; card run {e2e:.3f} s end to end, reference "
+        f"pass {ref_s:.3f} s, variant pass after it {var_s:.3f} s; kernel launches "
+        f"{launches}; --device cpu run {cpu_s:.3f} s")
+    if launches["screen_multi"] < 1:
+        raise AssertionError("the variant pass never launched the multi-guide kernel")
+
+
 def main() -> int:
     import torch
 
@@ -267,37 +588,80 @@ def main() -> int:
         f"torch {torch.__version__} cuda {torch.version.cuda} | "
         f"native finish library loaded: {native.available()}")
 
-    # 2. Build
+    # 2. Build: one nvcc per kernel source, all started together
     t0 = time.perf_counter()
-    dp_cuda.library()
-    log(f"[build] {dp_cuda.SOURCE.relative_to(ROOT)} built and loaded in "
-        f"{time.perf_counter() - t0:.3f} s")
+    for name in dp_cuda.SOURCES:
+        dp_cuda.library(name)
+    log(f"[build] {', '.join(str(p.relative_to(ROOT)) for p in dp_cuda.SOURCES.values())} "
+        f"built and loaded in {time.perf_counter() - t0:.3f} s")
 
-    # 3. Kernel vs plain, on the card
-    scorer = derive_scorer()
-    max_err, kernel_ms, plain_ms = kernel_vs_plain(
-        torch, np, dp_cuda, dp_screen, gs, scorer, device
-    )
-
-    # 4. Main path at chr21 scale
+    phase_s = {}
     with tempfile.TemporaryDirectory() as tmp:
-        launches = main_path(torch, dp_cuda, dp_screen, gs, scorer, device, Path(tmp))
+        tmp = Path(tmp)
+        configs = load_configs(tmp)
+
+        # 3. Kernel vs plain, on the card
+        t0 = time.perf_counter()
+        scorer = derive_scorer()
+        max_err, kernel_ms, plain_ms, genome = kernel_vs_plain(
+            torch, np, dp_cuda, dp_screen, gs, scorer, device
+        )
+        phase_s["3 dual vs plain"] = time.perf_counter() - t0
+
+        # 4. Main path at chr21 scale
+        t0 = time.perf_counter()
+        dual_launches = main_path(
+            torch, dp_cuda, dp_screen, gs, scorer, device, configs, tmp
+        )
+        phase_s["4 config3"] = time.perf_counter() - t0
+
+        # 5. Multi-guide kernel vs plain, on the card
+        t0 = time.perf_counter()
+        screen = gs.GenomeScreen(scorer, device, window=1000)
+        multi_err, multi_ms, multi_plain_ms = multi_vs_plain(
+            torch, np, dp_cuda, dp_screen, gs, scorer, genome, screen
+        )
+        del genome
+        phase_s["5 multi vs plain"] = time.perf_counter() - t0
+
+        # 6-8. The multi-guide kernel's paths
+        t0 = time.perf_counter()
+        multi_launches = config5s(
+            torch, np, dp_cuda, dp_screen, gs, scorer, device, configs, tmp
+        )
+        phase_s["6 config5s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        multi_launches += config4(torch, np, dp_cuda, dp_screen, configs, tmp)
+        phase_s["7 config4"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        variants_at_scale(torch, np, dp_cuda, configs, tmp)
+        phase_s["8 variants at scale"] = time.perf_counter() - t0
 
     from calitas_tpu.parallel import host_pool
 
     if host_pool._SHARED_POOL is not None:  # stop the finish workers
         host_pool._SHARED_POOL.shutdown(wait=True)
 
+    log("[phases] " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
     log(smi)
     print(json.dumps({"kernels": [{
         "name": "screen_dual",
         "route": "cuda",
         "source": "calitas_tpu_torch/csrc/screen_dual.cu",
         "replaces": "calitas_tpu/ops/dp_pallas2.py:221",
-        "launches": launches,
+        "launches": dual_launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "screen_multi",
+        "route": "cuda",
+        "source": "calitas_tpu_torch/csrc/screen_multi.cu",
+        "replaces": "calitas_tpu/ops/dp_pallas2.py:431",
+        "launches": multi_launches,
+        "max_abs_err": multi_err,
+        "ms": multi_ms[4],
+        "plain_ms": multi_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

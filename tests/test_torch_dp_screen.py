@@ -146,7 +146,7 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
     genome = torch.from_numpy(rng.integers(0, 64, size=300, dtype=np.uint8))
     kw = dict(base0=0, step=20, n_windows=12, window=30, min_score=0,
               pam_gate=True, **SKW)
-    launches = dp_cuda.launches
+    launches = dict(dp_cuda.launches)
     calls = port_dp.reference_calls["cpu"]
     got = dp_cuda.screen_dual(genome, qvals, **kw)
     want = port_dp.screen_dual_reference(genome, qvals, **kw)

@@ -1,6 +1,8 @@
 """The port runs where jax is not installed: in a fresh interpreter that
-cannot import jax, import the port and its CLI and run a small search
-(gpu engine on the CPU), and check that no jax module was ever loaded."""
+cannot import jax, import the port and its CLI and run small searches
+(gpu engine on the CPU): one guide, then a guide file of two same-length
+guides with a VCF, which runs the fused multi-guide screen and the
+variant pass.  No jax module may ever be loaded."""
 
 import subprocess
 import sys
@@ -10,7 +12,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 SCRIPT = textwrap.dedent(
-    """
+    r"""
     import sys
     sys.modules["jax"] = None  # any `import jax` now raises ImportError
     import numpy as np
@@ -31,12 +33,28 @@ SCRIPT = textwrap.dedent(
     assert rc == 0, rc
     rows = open(tmp + "/out.txt").read().splitlines()
     assert len(rows) >= 2, rows
+
+    with open(tmp + "/guides.tsv", "w") as fh:
+        fh.write("guide_id\tguide\ng1\tCTTGCCCCACAGGGCAGTAAnrg\n"
+                 "g2\tGACGCATAAAGATGAGACGCnrg\n")
+    with open(tmp + "/v.vcf", "w") as fh:
+        fh.write("##fileformat=VCFv4.2\n"
+                 "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n"
+                 f"chr1\t5006\trs1\t{seq[5005]}\tG\t50\tPASS\tAF=0.1\n"
+                 f"chr1\t9000\trs2\t{seq[8999]}\tTA\t50\tPASS\tAF=0.2\n")
+    rc = cli.main(["SearchReference", "--guide-file", tmp + "/guides.tsv",
+                   "-r", str(ref), "-v", tmp + "/v.vcf", "-o", tmp + "/v.txt",
+                   "-t", "1", "--engine", "gpu", "--device", "cpu"])
+    assert rc == 0, rc
+    vrows = open(tmp + "/v.txt").read().splitlines()
+    assert any("v.vcf:" in r for r in vrows), vrows
+    assert "calitas_tpu_torch.search.variants" in sys.modules
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "jaxlib")))
     assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
     assert not any(m.startswith("calitas_tpu.ops") for m in sys.modules)
     assert "calitas_tpu.parallel.screen_runner" not in sys.modules
-    print("OK", len(rows) - 1)
+    print("OK", len(rows) - 1, len(vrows) - 1)
     """
 )
 
