@@ -1,12 +1,19 @@
-"""Command line of the PyTorch/CUDA port: the SearchReference
-sub-command with the flags and defaults of ``calitas_tpu/cli.py``
-(SearchReference.scala:451-471), ``--engine {auto,host,gpu}`` and
-``--device``.
+"""Command line of the PyTorch/CUDA port: the four reference tools
+(SearchReference, AlignToReference, PairwiseAlignSequences, PrepareVcf)
+with the flags and defaults of ``calitas_tpu/cli.py``
+(SearchReference.scala:451-471, AlignToReference.scala:34-51,
+PairwiseAlignSequences.scala:24-34, PrepareVcf.scala:31-37), and
+``--engine {auto,host,gpu}`` and ``--device`` on the three that screen.
+PrepareVcf is host-only and runs ``calitas_tpu.tools.prepare_vcf``.
 
     python -m calitas_tpu_torch SearchReference -i GUIDE -I ID -r REF.fa \\
         -o OUT.txt --engine gpu [-v VARIANTS.vcf]
     python -m calitas_tpu_torch SearchReference --guide-file GUIDES.tsv \\
         -r REF.fa -o OUT.txt --engine gpu
+    python -m calitas_tpu_torch AlignToReference -i LOCI.tsv -r REF.fa \\
+        -o OUT.txt --engine gpu [-w 200 -d 4 -p 1 -O 5]
+    python -m calitas_tpu_torch PairwiseAlignSequences -i PAIRS.txt \\
+        -o OUT.txt --engine gpu
 """
 
 from __future__ import annotations
@@ -15,7 +22,7 @@ import argparse
 import logging
 import sys
 
-from calitas_tpu.cli import _add_scoring_args, _Once, _parse_guide_file
+from calitas_tpu.cli import _add_scoring_args, _Once, _parse_guide_file, _strict_bool
 from calitas_tpu.core.scoring import Defaults
 from calitas_tpu_torch.device import ENGINES
 
@@ -77,9 +84,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="Examine only the named chromosome.")
     sr.add_argument("--engine", choices=ENGINES, default="auto",
                     help="Execution engine (auto: gpu when CUDA is available).")
-    sr.add_argument("--device", default=None,
-                    help="torch device of the gpu engine (default cuda; cpu "
-                         "runs the screen's plain PyTorch version).")
+    _add_device_arg(sr)
     sr.add_argument("--profile-dir", default=None,
                     help="Write a torch.profiler trace of the run to this "
                          "directory.")
@@ -89,7 +94,65 @@ def build_parser() -> argparse.ArgumentParser:
     sr.add_argument("--process-count", type=int, default=None,
                     help="Not ported yet.")
     sr.add_argument("--distributed", action="store_true", help="Not ported yet.")
+
+    ar = sub.add_parser(
+        "AlignToReference",
+        help="Glocal alignment of query sequences to windows on the reference.",
+    )
+    ar.add_argument("-i", "--input", required=True,
+                    help="Input file of sequence queries and approximate positions.")
+    ar.add_argument("-r", "--ref", required=True,
+                    help="Reference genome fasta, must be indexed with faidx.")
+    ar.add_argument("-o", "--output", default=None)
+    ar.add_argument("-w", "--window-size", type=int, default=None)
+    ar.add_argument("-d", "--max-guide-diffs", type=int, default=None)
+    ar.add_argument("-p", "--max-pam-mismatches", type=int, default=None)
+    ar.add_argument("-g", "--max-gaps-between-guide-and-pam", type=int,
+                    default=Defaults.MAX_GAPS_BETWEEN_GUIDE_AND_PAM)
+    ar.add_argument("-D", "--max-total-diffs", type=int, default=None)
+    ar.add_argument("-O", "--max-overlap", type=int, default=None)
+    _add_scoring_args(ar)
+    ar.add_argument("-t", "--threads", type=int, default=8)
+    ar.add_argument("--engine", choices=ENGINES, default="auto",
+                    help="Execution engine (auto: host below 1000 loci or "
+                         "with the native library, else gpu when CUDA is "
+                         "available; output-identical).")
+    _add_device_arg(ar)
+
+    pw = sub.add_parser(
+        "PairwiseAlignSequences", help="Performs pairwise alignment of sequences."
+    )
+    pw.add_argument("-i", "--input", required=True, help="Input file of sequence pairs.")
+    pw.add_argument("-o", "--output", default=None)
+    pw.add_argument("-t", "--threads", type=int, default=8)
+    pw.add_argument("-g", "--max-gaps-between-guide-and-pam", type=int,
+                    default=Defaults.MAX_GAPS_BETWEEN_GUIDE_AND_PAM)
+    pw.add_argument("-O", "--max-overlap", type=int, default=Defaults.MAX_OVERLAP)
+    _add_scoring_args(pw)
+    pw.add_argument("--engine", choices=ENGINES, default="auto",
+                    help="Execution engine (auto: host below 1000 pairs or "
+                         "with the native library, else gpu when CUDA is "
+                         "available; output-identical).")
+    _add_device_arg(pw)
+
+    pv = sub.add_parser("PrepareVcf",
+                        help="Prepares a VCF for optimal use by SearchReference.")
+    pv.add_argument("-i", "--input", nargs="+", required=True,
+                    help="One or more input VCFs")
+    pv.add_argument("-o", "--output", required=True, help="The output VCF to create.")
+    pv.add_argument("-f", "--min-af", type=float, default=0.01,
+                    help="The minimum allele frequency of variants to retain.")
+    pv.add_argument("-d", "--dict", dest="dict_path", default=None,
+                    help="An optional sequence dictionary to use to override contig lines.")
+    pv.add_argument("-c", "--add-chr-prefix", type=_strict_bool,
+                    default=True, help="If true, add 'chr' to chroms 1-22, X and Y.")
     return parser
+
+
+def _add_device_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default=None,
+                   help="torch device of the gpu engine (default cuda; cpu "
+                        "runs the screen's plain PyTorch version).")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -99,8 +162,14 @@ def main(argv: list[str] | None = None) -> int:
         stream=sys.stderr,
     )
     args = build_parser().parse_args(argv)
+    run = {
+        "SearchReference": _search_reference,
+        "AlignToReference": _align_to_reference,
+        "PairwiseAlignSequences": _pairwise,
+        "PrepareVcf": _prepare_vcf,
+    }[args.command]
     try:
-        return _search_reference(args)
+        return run(args)
     except (FileNotFoundError, ValueError, KeyError) as ex:
         print(f"error: {ex}", file=sys.stderr)
         return 1
@@ -150,6 +219,62 @@ def _search_reference(args) -> int:
         engine=args.engine,
         device=args.device,
         profile_dir=args.profile_dir,
+    )
+    return 0
+
+
+def _align_to_reference(args) -> int:
+    from calitas_tpu_torch.tools import align_to_reference
+
+    align_to_reference.run(
+        input=args.input,
+        ref=args.ref,
+        output=args.output,
+        window_size=args.window_size,
+        max_guide_diffs=args.max_guide_diffs,
+        max_pam_mismatches=args.max_pam_mismatches,
+        max_gaps_between_guide_and_pam=args.max_gaps_between_guide_and_pam,
+        max_total_diffs=args.max_total_diffs,
+        max_overlap=args.max_overlap,
+        guide_mismatch_net_cost=args.guide_mismatch_net_cost,
+        pam_mismatch_net_cost=args.pam_mismatch_net_cost,
+        genome_gap_net_cost=args.genome_gap_net_cost,
+        guide_gap_net_cost=args.guide_gap_net_cost,
+        threads=args.threads,
+        engine=args.engine,
+        device=args.device,
+    )
+    return 0
+
+
+def _pairwise(args) -> int:
+    from calitas_tpu_torch.tools import pairwise
+
+    pairwise.run(
+        input=args.input,
+        output=args.output,
+        threads=args.threads,
+        max_gaps_between_guide_and_pam=args.max_gaps_between_guide_and_pam,
+        max_overlap=args.max_overlap,
+        guide_mismatch_net_cost=args.guide_mismatch_net_cost,
+        pam_mismatch_net_cost=args.pam_mismatch_net_cost,
+        genome_gap_net_cost=args.genome_gap_net_cost,
+        guide_gap_net_cost=args.guide_gap_net_cost,
+        engine=args.engine,
+        device=args.device,
+    )
+    return 0
+
+
+def _prepare_vcf(args) -> int:
+    from calitas_tpu.tools import prepare_vcf
+
+    prepare_vcf.run(
+        input=args.input,
+        output=args.output,
+        min_af=args.min_af,
+        dict_path=args.dict_path,
+        add_chr_prefix=args.add_chr_prefix,
     )
     return 0
 

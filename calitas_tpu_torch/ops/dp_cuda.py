@@ -1,12 +1,16 @@
-"""The CUDA screens (``csrc/screen_dual.cu``, ``csrc/screen_multi.cu``):
-build, wrappers and launch counters.
+"""The CUDA screens (``csrc/screen_dual.cu``, ``csrc/screen_multi.cu``,
+``csrc/screen_rows.cu``): build, wrappers, launch counters and the static
+route between a kernel and its plain version.
 
 :func:`screen_dual` replaces ``calitas_tpu/ops/dp_pallas2.py::
-_pallas_screen_dual`` (kernel ``_kernel2``) and :func:`screen_multi`
-replaces ``_pallas_screen_multi`` (kernel ``_kernel_multi``).  A CUDA
-tensor goes to the kernel or raises; a CPU tensor goes to the plain
-PyTorch version in :mod:`~calitas_tpu_torch.ops.dp_screen`.  There is no
-fallback between the two.
+_pallas_screen_dual`` (kernel ``_kernel2``), :func:`screen_multi`
+replaces ``_pallas_screen_multi`` (kernel ``_kernel_multi``) and
+:func:`screen_rows` replaces ``_pallas_screen2`` (kernel ``_kernel``) and
+carries the list tools' pair screen.  A CUDA tensor goes to the kernel or
+raises; a CPU tensor goes to the plain PyTorch version in
+:mod:`~calitas_tpu_torch.ops.dp_screen`.  There is no fallback between
+the two: callers choose the route before any launch with
+:func:`uses_kernel`, from the query length alone.
 
 Each kernel is built from the repository's source with ``nvcc`` at first
 use, into ``csrc/build/`` (git-ignored), keyed by a hash of the source
@@ -18,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
@@ -28,9 +33,13 @@ import numpy as np
 import torch
 
 from calitas_tpu_torch.ops.dp_screen import (
+    ScreenKernel,
     screen_dual_reference,
     screen_multi_reference,
+    screen_rows_reference,
 )
+
+logger = logging.getLogger("calitas_tpu_torch.screen")
 
 #: longest query the kernels are instantiated for (the reference's unroll
 #: limit, calitas_tpu/ops/dp_pallas2.py:133-134)
@@ -42,6 +51,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {
     "screen_dual": _CSRC / "screen_dual.cu",
     "screen_multi": _CSRC / "screen_multi.cu",
+    "screen_rows": _CSRC / "screen_rows.cu",
 }
 BUILD_DIR = _CSRC / "build"
 NVCC_FLAGS = (
@@ -132,6 +142,14 @@ def _bind(lib: ctypes.CDLL, name: str) -> None:
             vp, vp, vp,  # best, ranges, stream
         ]
         lib.calitas_screen_dual.restype = i32
+    elif name == "screen_rows":
+        lib.calitas_screen_rows.argtypes = [
+            vp, ll, i32, i32, vp,  # tmasks, ld, T, n_rows, lengths
+            ctypes.POINTER(i32), vp, i32,  # query (host), qrows, q_len
+            vp, i32, i32, i32, i32,  # min_scores, scores
+            vp, vp, vp,  # best, ranges, stream
+        ]
+        lib.calitas_screen_rows.restype = i32
     else:
         lib.calitas_screen_multi.argtypes = [
             vp, ll, ll, ll, i32, i32,  # genome, len, base0, step, window, n
@@ -186,8 +204,34 @@ def _check_q_len(Q: int, what: str):
     if Q > Q_MAX:
         raise NotImplementedError(
             f"CUDA {what} screen takes queries up to {Q_MAX} bases (got {Q}): "
-            "ROADMAP Queue 2 item 6"
+            "callers route longer ones to the plain screen (uses_kernel); "
+            "a kernel form is ROADMAP Queue 2 item 6"
         )
+
+
+def uses_kernel(q_len: int, device) -> bool:
+    """The static route of a screen of a ``q_len``-base query on
+    ``device``, chosen before any launch: True = the CUDA kernel, False =
+    the plain PyTorch screen on the same device (the CPU, or a query
+    longer than :data:`Q_MAX` on CUDA).  This is the reference's rule,
+    which sends queries over its kernels' unroll limit to its XLA scan on
+    the same accelerator (calitas_tpu/ops/genome_screen.py:749-753,
+    calitas_tpu/search/variants.py:790)."""
+    return torch.device(device).type == "cuda" and q_len <= Q_MAX
+
+
+def log_route(what: str, q_len: int, device) -> bool:
+    """:func:`uses_kernel`, logged at INFO with the query length; callers
+    log once per guide group or query-length bucket."""
+    kernel = uses_kernel(q_len, device)
+    logger.info(
+        "%s: %d-base query on %s -> %s", what, q_len, torch.device(device),
+        "CUDA kernel" if kernel else (
+            f"plain PyTorch screen (queries over {Q_MAX} bases)"
+            if torch.device(device).type == "cuda" else "plain PyTorch screen"
+        ),
+    )
+    return kernel
 
 
 def _raise_on(lib, err: int, what: str):
@@ -262,6 +306,35 @@ def to_device(arr: np.ndarray, device) -> torch.Tensor:
     return host.pin_memory().to(device, non_blocking=True)
 
 
+def readback(dev_out: tuple, finish):
+    """``resolve()`` of device results: on CUDA each tensor is copied to
+    pinned host memory without blocking, behind a recorded event that
+    ``resolve`` waits on; ``finish`` turns the host numpy arrays into the
+    result.  The copies and the event go to the current stream of the
+    tensors' device, so a launching thread's work stays in its order."""
+    dev = dev_out[0].device
+    event = None
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            host = tuple(
+                torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in dev_out
+            )
+            for h, t in zip(host, dev_out):
+                h.copy_(t, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+    else:
+        host = dev_out
+
+    def resolve():
+        if event is not None:
+            event.synchronize()
+        return finish(*(h.numpy() for h in host))
+
+    return resolve
+
+
 def screen_multi(
     genome: torch.Tensor,
     qvals: np.ndarray,
@@ -329,3 +402,116 @@ def screen_multi(
     _raise_on(lib, err, "screen_multi")
     _count_launch("screen_multi")
     return best, ranges
+
+
+def _on_device(x, dev: torch.device, dtype: torch.dtype, what: str) -> torch.Tensor:
+    """A host array (uploaded without blocking) or a tensor already on
+    ``dev``, as a contiguous ``dtype`` tensor there."""
+    if not isinstance(x, torch.Tensor):
+        x = to_device(np.asarray(x), dev)
+    elif x.device != dev:
+        raise ValueError(f"{what} is on {x.device}, the targets on {dev}")
+    return x.to(dtype).contiguous()
+
+
+def screen_rows(
+    qmasks,
+    tmasks: torch.Tensor,
+    lengths: torch.Tensor,
+    min_scores=None,
+    *,
+    match: int,
+    mismatch: int,
+    qgap: int,
+    tgap: int,
+):
+    """Final-row screen of the ``[B, T]`` uint8 target rows ``tmasks``
+    with per-row ``lengths`` [B] int32: returns ``best`` [C, B] int32 and,
+    with ``min_scores`` [B], ``ranges`` [C, 2, B] int32, else None
+    (contract: :func:`screen_rows_reference`).  ``qmasks`` is ``[1, Q]``
+    (one query shared by every row: ``_kernel``'s contract) or ``[2, B,
+    Q]`` (each row's chain-A and chain-B queries: the pair screen).
+
+    CUDA tensors launch the kernel on the current stream; CPU tensors run
+    the plain version.  Q > 48 on CUDA raises NotImplementedError."""
+    if tmasks.dtype != torch.uint8 or tmasks.dim() != 2:
+        raise ValueError(
+            f"tmasks must be a [B, T] uint8 tensor, got {tmasks.dtype} "
+            f"{tuple(tmasks.shape)}"
+        )
+    if not tmasks.is_contiguous():
+        raise ValueError("tmasks must be contiguous")
+    dev = tmasks.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    B, T = tmasks.shape
+    q_np = None if isinstance(qmasks, torch.Tensor) else np.asarray(qmasks)
+    q_shape = tuple(qmasks.shape)
+    per_row = len(q_shape) == 3
+    if not (
+        (len(q_shape) == 2 and q_shape[0] >= 1 and q_shape[1] >= 1)
+        or (per_row and q_shape[0] >= 1 and q_shape[1] == B and q_shape[2] >= 1)
+    ):
+        raise ValueError(f"qmasks must be [C, Q] or [C, {B}, Q], got {q_shape}")
+    if q_np is not None:
+        _check_masks(q_np)
+    if tuple(lengths.shape) != (B,):
+        raise ValueError(f"lengths must be [{B}], got {tuple(lengths.shape)}")
+    if min_scores is not None and tuple(np.shape(min_scores)) != (B,):
+        raise ValueError(f"min_scores must be [{B}], got {np.shape(min_scores)}")
+    kw = dict(match=match, mismatch=mismatch, qgap=qgap, tgap=tgap)
+    if dev.type == "cpu":
+        return screen_rows_reference(qmasks, tmasks, lengths, min_scores, **kw)
+    C, Q = q_shape[0], q_shape[-1]
+    if C != (2 if per_row else 1):
+        raise ValueError(
+            "the CUDA row screen takes one shared query [1, Q] or two "
+            f"per-row chains [2, B, Q], got {q_shape}"
+        )
+    _check_q_len(Q, "row")
+    best = torch.empty((C, B), dtype=torch.int32, device=dev)
+    ranges = (
+        None if min_scores is None
+        else torch.empty((C, 2, B), dtype=torch.int32, device=dev)
+    )
+    if B == 0:
+        return best, ranges
+    lib = library("screen_rows")
+    with torch.cuda.device(dev):
+        ln = _on_device(lengths, dev, torch.int32, "lengths")
+        ms = None if min_scores is None else _on_device(
+            min_scores, dev, torch.int32, "min_scores"
+        )
+        query = qrows = None
+        if per_row:
+            qrows = _on_device(qmasks, dev, torch.uint8, "qmasks")
+        else:
+            if q_np is None:
+                q_np = qmasks.cpu().numpy()
+                _check_masks(q_np)
+            query = (ctypes.c_int * Q)(*(int(v) for v in q_np.reshape(-1)))
+        err = lib.calitas_screen_rows(
+            tmasks.data_ptr(), T, T, B, ln.data_ptr(), query,
+            None if qrows is None else qrows.data_ptr(), Q,
+            None if ms is None else ms.data_ptr(), match, mismatch, qgap,
+            tgap, best.data_ptr(), None if ranges is None else ranges.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(lib, err, "screen_rows")
+    _count_launch("screen_rows")
+    return best, ranges
+
+
+class CudaScreenKernel(ScreenKernel):
+    """The counterpart of ``calitas_tpu/ops/dp_pallas2.py::
+    PallasScreenKernelV2``: the :class:`ScreenKernel` API with the maxima
+    computed by :func:`screen_rows` in shared-query mode (the CUDA kernel
+    on a CUDA device, its plain version on the CPU)."""
+
+    @staticmethod
+    def supports(q_len: int) -> bool:
+        return q_len <= Q_MAX
+
+    def _best(self, qmask: np.ndarray, tm, ln) -> torch.Tensor:
+        best, _ = screen_rows(np.asarray(qmask)[None], tm, ln, **self._scores())
+        return best[0]

@@ -9,7 +9,9 @@ start ``0, step, 2*step, ...`` on both strands, and the per-chain flags
 One guide runs the dual-chain kernel; a group of same-length guides
 sharing a step and PAM spec runs the multi-guide kernel, one launch per
 segment for the whole group.  The variant pass's slot batches run the
-multi-guide kernel too (:func:`screen_slots_multi`).
+multi-guide kernel too (:func:`screen_slots_multi`).  A query longer than
+the kernels take (``dp_cuda.Q_MAX``) runs the plain PyTorch screen on the
+same device instead, by the static rule of ``dp_cuda.uses_kernel``.
 
 Strand handling: screening query q against revcomp(window) is equivalent
 to screening revcomp(q) against the window, so both strands run against
@@ -24,6 +26,10 @@ import torch
 from calitas_tpu.core.scoring import Scorer
 from calitas_tpu.core.sequence import IUPAC_MASK, encode_query
 from calitas_tpu_torch.ops import dp_cuda
+from calitas_tpu_torch.ops.dp_screen import (
+    screen_dual_reference,
+    screen_multi_reference,
+)
 
 #: windows per screen batch unit.  The port's kernel needs no block
 #: granularity; this keeps the segment partition of
@@ -159,35 +165,6 @@ def _flags_and_coarse_ranges(best, ranges, min_scores, window):
     return _pack_padded(best >= min_scores), coarse.movedim(-2, -1).contiguous()
 
 
-def _readback(dev_out: tuple, finish):
-    """``resolve()`` of device results: on CUDA each tensor is copied to
-    pinned host memory without blocking, behind a recorded event that
-    ``resolve`` waits on; ``finish`` turns the host numpy arrays into the
-    result.  The copies and the event go to the current stream of the
-    tensors' device, so a launching thread's work stays in its order."""
-    dev = dev_out[0].device
-    event = None
-    if dev.type == "cuda":
-        with torch.cuda.device(dev):
-            host = tuple(
-                torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                for t in dev_out
-            )
-            for h, t in zip(host, dev_out):
-                h.copy_(t, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(dev))
-    else:
-        host = dev_out
-
-    def resolve():
-        if event is not None:
-            event.synchronize()
-        return finish(*(h.numpy() for h in host))
-
-    return resolve
-
-
 class GenomeScreen:
     """Per-contig device screen: stage once, screen every window layout.
 
@@ -287,10 +264,16 @@ class GenomeScreen:
         return genome, qvals, spec is not None
 
     def _screen_span(self, genome, qvals, pam_gate, base0, n, step, min_score):
-        """One kernel launch over windows [base0/step, +n): device tensors
-        of bit-packed flags [2, ceil(n/8)] and coarse ranges [2, n, 2]."""
+        """One screen over windows [base0/step, +n), the kernel or the
+        plain version by ``dp_cuda.uses_kernel``: device tensors of
+        bit-packed flags [2, ceil(n/8)] and coarse ranges [2, n, 2]."""
         s = self.scorer
-        best, ranges = dp_cuda.screen_dual(
+        screen = (
+            dp_cuda.screen_dual
+            if dp_cuda.uses_kernel(qvals.shape[-1], genome.device)
+            else screen_dual_reference
+        )
+        best, ranges = screen(
             genome, qvals, base0=base0, step=step, n_windows=n,
             window=self.window, min_score=min_score, match=s.match_score,
             mismatch=s.mismatch_score, qgap=s.query_gap_score,
@@ -361,18 +344,18 @@ class GenomeScreen:
             dev_out = self._screen_span(
                 genome, qvals[0], gate, i0 * step, n_seg, step, min_score
             )
-            out.append((i0, n_seg, _readback(dev_out, _chain_result(n_seg))))
+            out.append((i0, n_seg, dp_cuda.readback(dev_out, _chain_result(n_seg))))
         return out
 
     def _screen_span_multi(
         self, genome, qvals, min_scores, ms_dev, pam_gate, base0, n, step
     ):
-        """One multi-guide kernel launch over windows [base0/step, +n):
-        device tensors of bit-packed flags [G, 2, ceil(n/8)] and coarse
-        ranges [G, 2, n, 2].  ``ms_dev`` is ``min_scores`` as a [G, 1, 1]
-        tensor on the device."""
+        """One multi-guide screen over windows [base0/step, +n), routed
+        as :meth:`_screen_span`: device tensors of bit-packed flags [G, 2,
+        ceil(n/8)] and coarse ranges [G, 2, n, 2].  ``ms_dev`` is
+        ``min_scores`` as a [G, 1, 1] tensor on the device."""
         s = self.scorer
-        best, ranges = dp_cuda.screen_multi(
+        best, ranges = _multi_screen(qvals, genome.device)(
             genome, qvals, min_scores, base0=base0, step=step, n_windows=n,
             window=self.window, match=s.match_score,
             mismatch=s.mismatch_score, qgap=s.query_gap_score,
@@ -410,8 +393,16 @@ class GenomeScreen:
             dev_out = self._screen_span_multi(
                 genome, qvals, ms, ms_dev, gate, i0 * step, n_seg, step
             )
-            out.append((i0, n_seg, _readback(dev_out, _chain_result(n_seg))))
+            out.append((i0, n_seg, dp_cuda.readback(dev_out, _chain_result(n_seg))))
         return out
+
+
+def _multi_screen(qvals, device):
+    """The multi-guide screen for [G, 2, Q] ``qvals`` on ``device``: the
+    kernel's wrapper or the plain version, by ``dp_cuda.uses_kernel``."""
+    if dp_cuda.uses_kernel(qvals.shape[-1], device):
+        return dp_cuda.screen_multi
+    return screen_multi_reference
 
 
 def _chain_result(n: int):
@@ -437,7 +428,7 @@ def screen_contig_multi(
     _, qvals, _ = screen._prepare(genome, dp_queries, None)
     ms = np.asarray(min_scores, dtype=np.int32)
     s = screen.scorer
-    best, _ = dp_cuda.screen_multi(
+    best, _ = _multi_screen(qvals, genome.device)(
         genome, qvals, ms, base0=0, step=step, n_windows=n,
         window=screen.window, match=s.match_score, mismatch=s.mismatch_score,
         qgap=s.query_gap_score, tgap=s.target_gap_score, pam_gate=False,
@@ -464,7 +455,7 @@ def _slot_flags_multi(scorer: Scorer, tmasks: torch.Tensor, qvals, min_scores):
     exact host finish resolves."""
     B, T = tmasks.shape
     s = scorer
-    best, _ = dp_cuda.screen_multi(
+    best, _ = _multi_screen(qvals, tmasks.device)(
         tmasks.reshape(-1), qvals, min_scores, base0=0, step=T, n_windows=B,
         window=T, match=s.match_score, mismatch=s.mismatch_score,
         qgap=s.query_gap_score, tgap=s.target_gap_score, pam_gate=False,
@@ -490,7 +481,7 @@ def screen_slots_multi(
     tm = dp_cuda.to_device(tmasks.astype(np.uint8, copy=False), device)
     B = tm.shape[0]
     return [
-        _readback(
+        dp_cuda.readback(
             (_slot_flags_multi(scorer, tm, qvals, min_scores),),
             lambda packed: _unpack_flag_bits(packed, B),
         )

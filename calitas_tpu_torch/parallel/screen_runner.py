@@ -13,7 +13,9 @@ Guides of one shape (DP-query length, window step and PAM spec) form a
 group: a group of two or more runs the multi-guide kernel, one launch
 per segment for the whole group, and a single guide runs the dual-chain
 kernel.  Each segment's readback resolves once; every guide of the group
-reads its own slice of that one result.
+reads its own slice of that one result.  A group whose DP query is longer
+than the kernels take runs the plain PyTorch screen on the same device;
+the route is chosen and logged once per group, before any launch.
 
 Device, build and launch errors propagate: nothing here degrades to the
 host engine.
@@ -32,6 +34,7 @@ from calitas_tpu.align.engine import SequentialAligner
 from calitas_tpu.core.guide import Guide
 from calitas_tpu.core.sequence import revcomp
 from calitas_tpu.io.fasta import IndexedFasta
+from calitas_tpu_torch.ops import dp_cuda
 from calitas_tpu_torch.ops.genome_screen import GenomeScreen, range_block
 
 logger = logging.getLogger("calitas_tpu_torch.SearchReference")
@@ -74,6 +77,12 @@ def screened_search(
     timestamp, aligner_version).  Contigs outer (staged once), guides
     inner."""
     names = [chrom] if chrom is not None else fasta.names
+    groups = _guide_groups(tasks, align_kwargs)
+    for (q_len, _step, _pspec), group in groups.items():
+        dp_cuda.log_route(
+            "Screen of guides " + ",".join(t.guide_id for _ti, t, _dq in group),
+            q_len, screen.device,
+        )
 
     # A one-slot staging thread reads and uploads contig N+1 while contig
     # N is screened and finished (at most two staged contigs live on the
@@ -97,8 +106,9 @@ def screened_search(
             if genome is None:
                 continue
             yield from _search_contig(
-                fasta, name, contig_len, genome, tasks, aligner, screen,
-                window_size, threads, swallow_errors, hit_spec, align_kwargs,
+                fasta, name, contig_len, genome, tasks, groups, aligner,
+                screen, window_size, threads, swallow_errors, hit_spec,
+                align_kwargs,
             )
     finally:
         stager.shutdown(wait=True, cancel_futures=True)
@@ -122,6 +132,18 @@ def _dp_query_and_pam_spec(guide: Guide, align_kwargs: dict):
     return dq, pspec
 
 
+def _guide_groups(tasks, align_kwargs) -> dict:
+    """Tasks grouped by screen shape: ``{(dp-query length, step, PAM
+    spec): [(task index, task, dp query), ...]}``."""
+    groups: dict[tuple, list] = {}
+    for ti, task in enumerate(tasks):
+        dq, pspec = _dp_query_and_pam_spec(task.guide, align_kwargs)
+        groups.setdefault((len(dq), task.step_size, pspec), []).append(
+            (ti, task, dq)
+        )
+    return groups
+
+
 class _GuideSlice:
     """Guide ``gi``'s view of a group segment's readback: the group's
     Future resolves once, and each guide reads its own ``[gi]``."""
@@ -136,19 +158,13 @@ class _GuideSlice:
 
 
 def _search_contig(
-    fasta, name, contig_len, genome, tasks, aligner, screen, window_size,
-    threads, swallow_errors, hit_spec, align_kwargs,
+    fasta, name, contig_len, genome, tasks, groups, aligner, screen,
+    window_size, threads, swallow_errors, hit_spec, align_kwargs,
 ):
     # Launch every group's segmented screen before finishing any: the
     # device runs all segments back to back while the host pool finishes
     # earlier ones.  Each segment's readback is submitted once to the
     # ordered resolver pool; its Future is the one shared result.
-    groups: dict[tuple, list] = {}
-    for ti, task in enumerate(tasks):
-        dq, pspec = _dp_query_and_pam_spec(task.guide, align_kwargs)
-        groups.setdefault((len(dq), task.step_size, pspec), []).append(
-            (ti, task, dq)
-        )
     resolver = ThreadPoolExecutor(
         max_workers=_RESOLVERS, thread_name_prefix="calitas-resolve"
     )

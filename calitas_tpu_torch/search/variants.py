@@ -7,8 +7,9 @@ package's own (``variant_window_iterator``, ``_WindowBlock``,
 ``flank_and_absolutize``), imported, not copied.  Only the device calls
 differ: slot batches go to :func:`~calitas_tpu_torch.ops.genome_screen.
 screen_slots_multi`, the multi-guide kernel on CUDA or its plain version
-on the CPU.  A device error propagates; nothing degrades to unscreened
-alignment.
+on the CPU (and on CUDA for guides whose DP query is longer than the
+kernel takes: the route is chosen and logged once per guide group).  A
+device error propagates; nothing degrades to unscreened alignment.
 """
 
 from __future__ import annotations
@@ -62,6 +63,10 @@ def screened_variant_windows_multi(
         )
         ms.append(min_score)
     group_keys = [ks for ks, _, _ in by_len.values()]
+    for (_kernel, q_len), (ks, _qs, _ms) in by_len.items():
+        dp_cuda.log_route(
+            "Variant screen of guides " + ",".join(map(str, ks)), q_len, device
+        )
     groups = [
         (np.stack(qs).astype(np.int32), np.asarray(ms, np.int32))
         for ks, qs, ms in by_len.values()

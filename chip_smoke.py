@@ -39,12 +39,34 @@ It imports nothing of JAX.  Phases, each raising on failure:
    SNVs (one per 250 bases) through the CLI with ``-v``, on the card and
    with ``--device cpu`` (the plain versions); the tables must be
    identical.  Prints each pass's wall time and the variant-window count.
+9. Row kernel vs plain: the row screen (``csrc/screen_rows.cu``) must equal
+   its plain PyTorch version bit for bit in shared-query mode (B 8192 x T
+   64/128/512, and B 41,238 x T 1000 with ragged lengths, at Q 1/20/24/48)
+   and in per-row mode (B 20,000 x slots 64/128/256, lengths 0..slot,
+   ranges on and off); times both at B 41,238 x T 1000, Q 20 (shared) and
+   20,000 x 256 (per-row).
+10. Golden configs 1 (PairwiseAlignSequences) and 2 (AlignToReference)
+   through the port's CLI with ``--engine gpu``: the tables must equal
+   the goldens, the row kernel must have launched and no plain version
+   may run on the card (each pair-screen chunk makes one screen call, so
+   then every chunk launched the kernel).
+11. The list tools at scale: 20,000 hit-dense pairs, and AlignToReference
+   all-hits (``-w 200 -d 4 -p 1 -O 5``) at 20,000 loci on config 3's 40 Mb
+   contig, each with config 3's guide and a 24-base 5'-PAM guide, on
+   ``--engine gpu`` and ``--engine host``: the tables must be identical.
+   Prints both wall times.
+12. A guide whose DP query is 50 bases (over the kernels' 48) through
+   SearchReference on config 2's 2 Mb contig on the card and with
+   ``--device cpu``: the tables must be identical, the route must be
+   logged, the plain screen must have run on the card and no screen
+   kernel for it.
 
 The line before the last is a JSON object describing the kernels (the
 launch counts are those of the main paths: phase 4 for the dual kernel,
-phases 6 and 7 for the multi-guide kernel); the last line is
-``{"ok": true, "device": {...}}``.  Exits non-zero, without that line,
-when there is no CUDA device or the repository is missing.
+phases 6 and 7 for the multi-guide kernel, the gpu runs of phases 10 and
+11 for the row kernel); the last line is ``{"ok": true, "device":
+{...}}``.  Exits non-zero, without that line, when there is no CUDA device
+or the repository is missing.
 """
 
 from __future__ import annotations
@@ -224,11 +246,12 @@ def assert_same_table(got: list, want: list, what: str) -> None:
 
 def run_cli(torch, cli, argv: list) -> float:
     """The port's CLI in this process; returns its wall seconds."""
+    argv = [str(a) for a in argv]
     t0 = time.perf_counter()
     rc = cli.main(argv)
     torch.cuda.synchronize()
     if rc != 0:
-        raise RuntimeError(f"SearchReference {' '.join(argv)} exited {rc}")
+        raise RuntimeError(f"{' '.join(argv)} exited {rc}")
     return time.perf_counter() - t0
 
 
@@ -565,6 +588,296 @@ def variants_at_scale(torch, np, dp_cuda, configs, tmp: Path) -> None:
         raise AssertionError("the variant pass never launched the multi-guide kernel")
 
 
+def rows_vs_plain(torch, np, dp_cuda, dp_screen, scorer, device):
+    """Phase 9: returns (max_abs_err over all cases, {mode: (kernel ms,
+    plain ms)})."""
+    rng = np.random.default_rng(9)
+    sk = dict(match=scorer.match_score, mismatch=scorer.mismatch_score,
+              qgap=scorer.query_gap_score, tgap=scorer.target_gap_score)
+    acgt = np.array([1, 2, 4, 8], np.uint8)
+    rc_mask = np.array([0, 8, 4, 12, 2, 10, 6, 14, 1, 9, 5, 13, 3, 11, 7, 15], np.uint8)
+
+    def targets(B, T, query_of):
+        """[B, T] ACGT masks with a copy of row b's query ``query_of(b)``
+        planted in every 50th row, mutated 0-4 times."""
+        tm = acgt[rng.integers(0, 4, (B, T))]
+        for b in range(0, B, 50):
+            q = query_of(b).copy()
+            if len(q) > T:
+                continue
+            q[rng.integers(0, len(q), int(rng.integers(0, 5)))] = acgt[rng.integers(0, 4)]
+            p = int(rng.integers(0, T - len(q) + 1))
+            tm[b, p : p + len(q)] = q
+        return torch.from_numpy(tm).to(device)
+
+    def compare(what, qmasks, tm, ln, ms):
+        got = dp_cuda.screen_rows(qmasks, tm, ln, ms, **sk)
+        want = dp_screen.screen_rows_reference(qmasks, tm, ln, ms, **sk)
+        torch.cuda.synchronize()
+        pairs = [(got[0], want[0])] + ([(got[1], want[1])] if ms is not None else [])
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) for g, w in pairs)
+        same = all(torch.equal(g, w) for g, w in pairs) and (ms is not None or got[1] is None)
+        top = int(got[0].max())
+        log(f"[rows] {what} bit-identical={same} max_abs_err={err} best max {top}")
+        if not same:
+            raise AssertionError(f"row kernel != plain: {what}")
+        return err
+
+    max_err = 0
+    main_shared = main_rows = None
+    for B, T, ragged in ((8192, 64, False), (8192, 128, True), (8192, 512, False),
+                         (41_238, 1000, True)):
+        for Q in (1, 20, 24, 48):
+            q = acgt[rng.integers(0, 4, Q)]
+            tm = targets(B, T, lambda b: q)
+            lens = rng.integers(0, T + 1, B) if ragged else np.full(B, T)
+            ln = torch.from_numpy(lens.astype(np.int32)).to(device)
+            ms = None
+            if Q in (20, 48):
+                ms = torch.full((B,), scorer.match_score * Q - 4 * 122,
+                                dtype=torch.int32, device=device)
+            max_err = max(max_err, compare(
+                f"shared B={B} T={T} Q={Q} ragged={ragged} ranges={ms is not None}",
+                q[None], tm, ln, ms))
+            if (B, T, Q) == (41_238, 1000, 20):
+                main_shared = (q[None], tm, ln)
+    for T in (64, 128, 256):
+        for k, Q in enumerate((1, 20, 24, 48)):
+            B = 20_000
+            qa = acgt[rng.integers(0, 4, (B, Q))]
+            qmasks = np.stack([qa, rc_mask[qa[:, ::-1]]])  # chain B: the revcomp
+            tm = targets(B, T, lambda b: qa[b])
+            ln = torch.from_numpy(rng.integers(0, T + 1, B).astype(np.int32)).to(device)
+            ms = None
+            if (T + k) % 2 == 0:
+                ms = torch.from_numpy(
+                    (scorer.match_score * Q - rng.integers(0, 6, B) * 122).astype(np.int32)
+                ).to(device)
+            qd = torch.from_numpy(np.ascontiguousarray(qmasks)).to(device)
+            max_err = max(max_err, compare(
+                f"per-row B={B} slot={T} Q={Q} ranges={ms is not None}", qd, tm, ln, ms))
+            if (T, Q) == (256, 20):
+                ms = torch.full((B,), scorer.match_score * Q - 4 * 122,
+                                dtype=torch.int32, device=device)
+                main_rows = (qd, tm, ln, ms)
+    q, tm, ln = main_shared
+    times = {"shared": (
+        cuda_time_ms(torch, lambda: dp_cuda.screen_rows(q, tm, ln, **sk), 20),
+        cuda_time_ms(torch, lambda: dp_screen.screen_rows_reference(q, tm, ln, **sk), 3),
+    )}
+    qd, tm, ln, ms = main_rows
+    times["per-row"] = (
+        cuda_time_ms(torch, lambda: dp_cuda.screen_rows(qd, tm, ln, ms, **sk), 20),
+        cuda_time_ms(torch, lambda: dp_screen.screen_rows_reference(qd, tm, ln, ms, **sk), 3),
+    )
+    log(f"[rows] shared query, B 41238 x T 1000, Q 20, ragged: kernel "
+        f"{times['shared'][0]:.4f} ms, plain {times['shared'][1]:.4f} ms; per-row "
+        f"query, both chains, B 20000 x slot 256, Q 20, ranges on: kernel "
+        f"{times['per-row'][0]:.4f} ms, plain {times['per-row'][1]:.4f} ms")
+    return max_err, times
+
+
+def pair_screen_run(torch, cli, dp_cuda, dp_screen, argv: list):
+    """One list-tool run through the CLI with the counts set to 0 just
+    before it; returns (wall seconds, row-kernel launches, plain calls on
+    the card)."""
+    dp_cuda.reset_launches()
+    dp_screen.reference_calls["cuda"] = 0
+    wall = run_cli(torch, cli, argv)
+    return wall, dp_cuda.launches["screen_rows"], dp_screen.reference_calls["cuda"]
+
+
+def check_kernel_route(what: str, launches: int, plain: int) -> None:
+    """Every pair-screen chunk makes exactly one screen call, the kernel
+    or its plain version: with no plain call on the card, every chunk
+    launched the kernel."""
+    log(f"[{what}] row-kernel launches {launches}, plain calls on the card {plain}")
+    if launches < 1 or plain != 0:
+        raise AssertionError(f"{what}: {launches} row-kernel launches, {plain} plain "
+                             "calls on the card")
+
+
+def goldens_1_2(torch, dp_cuda, dp_screen, configs) -> int:
+    """Phase 10: golden configs 1 and 2 through the port's CLI with
+    ``--engine gpu``; returns the row kernel's launches in those runs.
+    run_configs.config1/config2 write their inputs and call the reference
+    tools, which are swapped for the port's CLI here."""
+    from calitas_tpu.tools import align_to_reference, pairwise
+    from calitas_tpu_torch import cli
+
+    runs = {}
+
+    def port(name, argv):
+        runs[name] = pair_screen_run(torch, cli, dp_cuda, dp_screen,
+                                     [*argv, "--engine", "gpu"])
+
+    saved = pairwise.run, align_to_reference.run
+    pairwise.run = lambda input, output: port(
+        "config1", ["PairwiseAlignSequences", "-i", input, "-o", output])
+    align_to_reference.run = lambda input, ref, output, window_size: port(
+        "config2", ["AlignToReference", "-i", input, "-r", ref, "-o", output,
+                    "-w", window_size])
+    try:
+        configs.config1()
+        configs.config2()
+    finally:
+        pairwise.run, align_to_reference.run = saved
+    launches = 0
+    for name in ("config1", "config2"):
+        wall, n, plain = runs[name]
+        got = norm_rows((configs.OUT / f"{name}.txt").read_text())
+        assert_same_table(got, golden_rows(f"{name}.txt"), f"{name} table differs from golden")
+        log(f"[{name}] table == golden ({len(got) - 1} rows); end to end {wall:.3f} s")
+        check_kernel_route(name, n, plain)
+        launches += n
+    return launches
+
+
+G5 = "tttv" + "GATCCGTAGCTAGGCATTACGGTA"  # a 24-base protospacer after a 5' PAM
+
+
+def planted_sites(np, n: int, seed: int, plant: int = 40) -> list:
+    """Positions of the sites benchmarks/run_configs.py's synth_genome
+    plants, found by replaying its random draws without building the
+    genome."""
+    rng = np.random.default_rng(seed)
+    rng.integers(0, 4, n)  # the genome's bases
+    proto = GUIDE[:-3]
+    out = []
+    for _ in range(plant):
+        out.append(int(rng.integers(100, n - 100)))
+        site = list(proto)
+        for _ in range(int(rng.integers(0, 5))):
+            i = int(rng.integers(0, len(site)))
+            site[i] = rng.choice([c for c in "ACGT" if c != site[i]])
+        rng.choice(["TGG", "AAG", "CGG"])
+        rng.random()
+    return out
+
+
+def list_tool_inputs(np, configs, tmp: Path) -> dict:
+    """Phase 11's inputs: ``{name: CLI argv without -o and --engine}`` for
+    20,000 pairs and 20,000 A2R loci on config 3's contig."""
+    from calitas_tpu.core.sequence import revcomp
+    from calitas_tpu.io.fasta import IndexedFasta
+
+    rng = np.random.default_rng(11)
+    protos = {GUIDE: GUIDE[:-3], G5: G5[4:]}
+
+    def site(guide):
+        s = list(protos[guide])
+        for _ in range(int(rng.integers(0, 5))):
+            s[int(rng.integers(0, len(s)))] = "ACGT"[int(rng.integers(0, 4))]
+        s = "".join(s)
+        s = s + "TGG" if guide == GUIDE else "TTTA" + s
+        return revcomp(s) if rng.random() < 0.5 else s
+
+    pairs = tmp / "pairs20k.txt"
+    with open(pairs, "w") as fh:
+        for k in range(20_000):
+            guide = (GUIDE, G5)[k % 2]
+            t = "".join("ACGT"[i] for i in rng.integers(0, 4, int(rng.integers(100, 201))))
+            if k % 4 < 2:  # half the pairs carry a site
+                s = site(guide)
+                p = int(rng.integers(0, len(t) - len(s)))
+                t = t[:p] + s + t[p + len(s):]
+            fh.write(f"{guide}\t{t}\n")
+    ref = configs.build_ref(CONTIG, 3, "c3chr21")
+    sites = planted_sites(np, CONTIG, 3)
+    bases = IndexedFasta(ref).get_bases("chr21")
+    hits = sum(
+        sum(a == b for a, b in zip(bytes(bases[p : p + 20]).decode(), GUIDE[:20])) >= 15
+        or sum(a == b for a, b in zip(bytes(bases[p + 3 : p + 23]).decode(),
+                                      revcomp(GUIDE[:20]))) >= 15
+        for p in sites
+    )
+    if hits < 30:
+        raise AssertionError(f"only {hits} of 40 replayed site positions hold a site")
+    loci = tmp / "loci20k.tsv"
+    with open(loci, "w") as fh:
+        fh.write("id\tquery\tchrom\tposition\n")
+        for k in range(20_000):
+            if k % 10 == 0:
+                pos = sites[(k // 10) % len(sites)] + int(rng.integers(-50, 51))
+            else:
+                pos = int(rng.integers(1_000, CONTIG - 1_000))
+            fh.write(f"l{k}\t{(GUIDE, G5)[k % 2]}\tchr21\t{pos}\n")
+    log(f"[list tools] 20,000 pairs and 20,000 loci written; {hits} of 40 planted "
+        "site positions replayed and checked")
+    return {
+        "pairs": ["PairwiseAlignSequences", "-i", pairs],
+        "a2r": ["AlignToReference", "-i", loci, "-r", ref, "-w", "200", "-d", "4",
+                "-p", "1", "-O", "5"],
+    }
+
+
+def list_tools_at_scale(torch, np, dp_cuda, dp_screen, configs, tmp: Path) -> int:
+    """Phase 11: 20,000 pairs and 20,000 A2R loci, gpu engine against
+    host engine; returns the row kernel's launches in the gpu runs."""
+    from calitas_tpu_torch import cli
+
+    runs = list_tool_inputs(np, configs, tmp)
+    launches = 0
+    for name, argv in runs.items():
+        wall, n, plain = pair_screen_run(
+            torch, cli, dp_cuda, dp_screen,
+            [*argv, "-o", tmp / f"{name}_gpu.txt", "--engine", "gpu"])
+        host_wall = run_cli(torch, cli, [*argv, "-o", tmp / f"{name}_host.txt",
+                                         "--engine", "host"])
+        got = norm_rows((tmp / f"{name}_gpu.txt").read_text())
+        assert_same_table(got, norm_rows((tmp / f"{name}_host.txt").read_text()),
+                          f"{name}: gpu and host tables differ")
+        log(f"[{name}] 20,000 rows: tables identical on --engine gpu and --engine host "
+            f"({len(got) - 1} rows); gpu {wall:.3f} s, host {host_wall:.3f} s end to end")
+        check_kernel_route(name, n, plain)
+        launches += n
+    return launches
+
+
+def long_guide(torch, dp_cuda, dp_screen, configs, tmp: Path) -> None:
+    """Phase 12: a 50-base DP query through SearchReference on config 2's
+    2 Mb contig, on the card and with --device cpu."""
+    from calitas_tpu.io.fasta import IndexedFasta
+    from calitas_tpu_torch import cli
+
+    ref = configs.build_ref(2_000_000, 2, "c2ref")
+    bases = bytes(IndexedFasta(ref).get_bases("chr21"))
+    p = next(p for p in range(500_000, len(bases))
+             if bases[p + 51] in b"AG" and bases[p + 52] == ord("G"))
+    guide = bases[p : p + 50].decode() + "nrg"
+    argv = ["SearchReference", "-i", guide, "-I", "g50", "-r", ref, "--engine", "gpu"]
+    routes = []
+
+    class Routes(logging.Handler):
+        def emit(self, record):
+            routes.append(record.getMessage())
+
+    handler = Routes(logging.INFO)
+    logging.getLogger("calitas_tpu_torch.screen").addHandler(handler)
+    try:
+        dp_cuda.reset_launches()
+        dp_screen.reference_calls["cuda"] = 0
+        wall = run_cli(torch, cli, [*argv, "-o", tmp / "g50_cuda.txt"])
+        launches = dict(dp_cuda.launches)
+        plain = dp_screen.reference_calls["cuda"]
+    finally:
+        logging.getLogger("calitas_tpu_torch.screen").removeHandler(handler)
+    cpu_wall = run_cli(torch, cli, [*argv, "-o", tmp / "g50_cpu.txt", "--device", "cpu"])
+    got = norm_rows((tmp / "g50_cuda.txt").read_text())
+    assert_same_table(got, norm_rows((tmp / "g50_cpu.txt").read_text()),
+                      "50-base guide: card and --device cpu tables differ")
+    log(f"[long guide] {guide} ({len(guide) - 3}-base DP query): tables identical on the "
+        f"card and --device cpu ({len(got) - 1} rows); route: {routes}; plain calls on "
+        f"the card {plain}; kernel launches {launches}; card {wall:.3f} s, cpu "
+        f"{cpu_wall:.3f} s")
+    if len(got) < 2:
+        raise AssertionError("the 50-base guide found no hit, not even its own site")
+    if not any("50-base query" in r and "plain" in r for r in routes):
+        raise AssertionError("the plain route of the 50-base guide was not logged")
+    if plain == 0 or any(launches.values()):
+        raise AssertionError("the 50-base guide did not run on the plain route alone")
+
+
 def main() -> int:
     import torch
 
@@ -637,6 +950,20 @@ def main() -> int:
         variants_at_scale(torch, np, dp_cuda, configs, tmp)
         phase_s["8 variants at scale"] = time.perf_counter() - t0
 
+        # 9-12. The row kernel and its paths, and the long-guide route
+        t0 = time.perf_counter()
+        rows_err, rows_ms = rows_vs_plain(torch, np, dp_cuda, dp_screen, scorer, device)
+        phase_s["9 rows vs plain"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows_launches = goldens_1_2(torch, dp_cuda, dp_screen, configs)
+        phase_s["10 configs 1-2"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows_launches += list_tools_at_scale(torch, np, dp_cuda, dp_screen, configs, tmp)
+        phase_s["11 list tools at scale"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        long_guide(torch, dp_cuda, dp_screen, configs, tmp)
+        phase_s["12 long guide"] = time.perf_counter() - t0
+
     from calitas_tpu.parallel import host_pool
 
     if host_pool._SHARED_POOL is not None:  # stop the finish workers
@@ -662,6 +989,15 @@ def main() -> int:
         "max_abs_err": multi_err,
         "ms": multi_ms[4],
         "plain_ms": multi_plain_ms,
+    }, {
+        "name": "screen_rows",
+        "route": "cuda",
+        "source": "calitas_tpu_torch/csrc/screen_rows.cu",
+        "replaces": "calitas_tpu/ops/dp_pallas2.py:42",
+        "launches": rows_launches,
+        "max_abs_err": rows_err,
+        "ms": rows_ms["shared"][0],
+        "plain_ms": rows_ms["shared"][1],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -2,7 +2,10 @@
 cannot import jax, import the port and its CLI and run small searches
 (gpu engine on the CPU): one guide, then a guide file of two same-length
 guides with a VCF, which runs the fused multi-guide screen and the
-variant pass.  No jax module may ever be loaded."""
+variant pass; then PairwiseAlignSequences and AlignToReference (best and
+all-hits modes), once with the native finish and once without it, so the
+host workers' per-item fallback runs and must still give the host
+engine's table.  No jax module may ever be loaded."""
 
 import subprocess
 import sys
@@ -49,11 +52,62 @@ SCRIPT = textwrap.dedent(
     vrows = open(tmp + "/v.txt").read().splitlines()
     assert any("v.vcf:" in r for r in vrows), vrows
     assert "calitas_tpu_torch.search.variants" in sys.modules
+
+    # The list tools.  Their tables on the gpu engine must equal the host
+    # engine's, with the native finish and with the per-item fallback.
+    pairs = tmp + "/pairs.txt"
+    with open(pairs, "w") as fh:
+        for k in range(12):
+            t = "".join(seq[4990 + 7 * k : 5040 + 7 * k])
+            q = "CTTGCCCCACAGGGCAGTAAnrg" if k % 2 else "tttvCTTGCCCCACAGGGCAGTAA"
+            fh.write(q + " " + t + "\n")
+    loci = tmp + "/loci.tsv"
+    with open(loci, "w") as fh:
+        fh.write("id\tquery\tchrom\tposition\n")
+        for k in range(10):
+            fh.write(f"l{k}\tCTTGCCCCACAGGGCAGTAAnrg\tchr1\t{4990 + 40 * k}\n")
+    runs = {
+        "pw": ["PairwiseAlignSequences", "-i", pairs],
+        "best": ["AlignToReference", "-i", loci, "-r", str(ref)],
+        "all": ["AlignToReference", "-i", loci, "-r", str(ref), "-w", "60",
+                "-d", "4", "-p", "1", "-O", "5"],
+    }
+
+    def table(name, tag, *engine):
+        out = f"{tmp}/{name}_{tag}.txt"
+        assert cli.main([*runs[name], "-o", out, "-t", "1", *engine]) == 0
+        rows = open(out).read().splitlines()
+        hdr = rows[0].split("\t")
+        ts = hdr.index("time_stamp") if "time_stamp" in hdr else None
+        return [[f for i, f in enumerate(r.split("\t")) if i != ts] for r in rows]
+
+    from calitas_tpu import native
+    from calitas_tpu.align.engine import SequentialAligner
+
+    host = {n: table(n, "host", "--engine", "host") for n in runs}
+    assert all(len(t) > 1 for t in host.values()), host
+    for n in runs:
+        assert table(n, "gpu", "--engine", "gpu", "--device", "cpu") == host[n], n
+    per_item = []
+    for name in ("align_best", "align_to_ref_best", "align_to_ref"):
+        real = getattr(SequentialAligner, name)
+
+        def counted(self, *a, _real=real, **kw):
+            per_item.append(kw.get("pass_dp_bounds"))
+            return _real(self, *a, **kw)
+
+        setattr(SequentialAligner, name, counted)
+    native._lib, native._tried = None, True  # the native finish is gone
+    assert not native.available()
+    for n in runs:
+        assert table(n, "fallback", "--engine", "gpu", "--device", "cpu") == host[n], n
+    assert len(per_item) >= 12 + 10 + 10 and not any(per_item), per_item
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "jaxlib")))
     assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
     assert not any(m.startswith("calitas_tpu.ops") for m in sys.modules)
     assert "calitas_tpu.parallel.screen_runner" not in sys.modules
+    assert "calitas_tpu_torch.ops.pair_screen" in sys.modules
     print("OK", len(rows) - 1, len(vrows) - 1)
     """
 )

@@ -171,7 +171,8 @@ def test_launch_counter_is_thread_safe():
 
         threads = [
             threading.Thread(target=count, args=(name,))
-            for name in ["screen_multi"] * 6 + ["screen_dual"] * 2
+            for name in ["screen_multi"] * 4 + ["screen_dual"] * 2
+            + ["screen_rows"] * 2
         ]
         for t in threads:
             t.start()
@@ -179,7 +180,8 @@ def test_launch_counter_is_thread_safe():
             t.join(timeout=120)
         assert not any(t.is_alive() for t in threads)
         assert dp_cuda.launches == {
-            "screen_multi": 6 * per_thread, "screen_dual": 2 * per_thread
+            "screen_multi": 4 * per_thread, "screen_dual": 2 * per_thread,
+            "screen_rows": 2 * per_thread,
         }
     finally:
         sys.setswitchinterval(interval)
