@@ -4,7 +4,7 @@ with the flags and defaults of ``calitas_tpu/cli.py``
 (SearchReference.scala:451-471, AlignToReference.scala:34-51,
 PairwiseAlignSequences.scala:24-34, PrepareVcf.scala:31-37), and
 ``--engine {auto,host,gpu}`` and ``--device`` on the three that screen.
-PrepareVcf is host-only and runs ``calitas_tpu.tools.prepare_vcf``.
+PrepareVcf is host-only (``tools/prepare_vcf.py``).
 
     python -m calitas_tpu_torch SearchReference -i GUIDE -I ID -r REF.fa \\
         -o OUT.txt --engine gpu [-v VARIANTS.vcf]
@@ -22,8 +22,7 @@ import argparse
 import logging
 import sys
 
-from calitas_tpu.cli import _add_scoring_args, _Once, _parse_guide_file, _strict_bool
-from calitas_tpu.core.scoring import Defaults
+from calitas_tpu_torch.core.scoring import Defaults
 from calitas_tpu_torch.device import ENGINES
 
 #: reference CLI flags whose features the port does not have yet, and the
@@ -36,13 +35,88 @@ _NOT_PORTED = {
 }
 
 
+class _Once(argparse.Action):
+    """Reject a repeated single-valued flag instead of silently keeping
+    the last value (argparse's default), which would silently search one
+    guide when a user writes ``-i G1 -i G2`` expecting a multi-guide run
+    (that is ``--guide-file``).  Mirrors sopt's duplicate-flag error."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        if getattr(namespace, self.dest, None) is not None:
+            parser.error(
+                f"{option_string} given more than once; for multi-guide "
+                "searches use --guide-file"
+            )
+        setattr(namespace, self.dest, values)
+
+
+def _add_scoring_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-m", "--guide-mismatch-net-cost", type=int,
+                   default=Defaults.MISMATCH_NET_COST,
+                   help="Net cost of going from a match to a mismatch in the guide.")
+    p.add_argument("-M", "--pam-mismatch-net-cost", type=int,
+                   default=Defaults.PAM_MISMATCH_NET_COST,
+                   help="Net cost of going from a match to a mismatch in the PAM.")
+    p.add_argument("-b", "--genome-gap-net-cost", type=int,
+                   default=Defaults.GENOME_GAP_NET_COST,
+                   help="Net cost of a 1bp gap in the genome.")
+    p.add_argument("-B", "--guide-gap-net-cost", type=int,
+                   default=Defaults.GUIDE_GAP_NET_COST,
+                   help="Net cost of a 1bp gap in the guide.")
+
+
+def _strict_bool(s: str) -> bool:
+    """'true'/'false' (case-insensitive) or an error — like the
+    reference's sopt boolean parser; anything else must not silently
+    become False."""
+    v = s.strip().lower()
+    if v == "true":
+        return True
+    if v == "false":
+        return False
+    import argparse
+
+    raise argparse.ArgumentTypeError(
+        f"expected 'true' or 'false', got {s!r}"
+    )
+
+
+def _parse_guide_file(path: str) -> list[tuple[str, str, list[str]]]:
+    """Parse a guide TSV: columns guide_id, guide, optional aux_pams
+    (comma-separated).  CRLF files and short rows get clear errors."""
+    specs = []
+    with open(path, newline=None) as fh:  # universal newlines eat \r\n
+        header = fh.readline().rstrip("\r\n").split("\t")
+        col = {name.strip(): i for i, name in enumerate(header)}
+        for req in ("guide_id", "guide"):
+            if req not in col:
+                raise SystemExit(f"--guide-file missing required column: {req}")
+        need = max(col["guide_id"], col["guide"]) + 1
+        for lineno, line in enumerate(fh, start=2):
+            if not line.strip():
+                continue
+            f = line.rstrip("\r\n").split("\t")
+            if len(f) < need:
+                raise SystemExit(
+                    f"--guide-file line {lineno}: expected at least "
+                    f"{need} columns, got {len(f)}"
+                )
+            aux: list[str] = []
+            if "aux_pams" in col and len(f) > col["aux_pams"] and f[col["aux_pams"]]:
+                aux = f[col["aux_pams"]].split(",")
+            specs.append((f[col["guide_id"]], f[col["guide"]], aux))
+    if not specs:
+        raise SystemExit(f"--guide-file contains no guides: {path}")
+    return specs
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="calitas-tpu-torch",
         description="CRISPR off-target search (CALITAS-compatible), "
                     "PyTorch/CUDA port.",
     )
-    from calitas_tpu.version import aligner_version
+    from calitas_tpu_torch.version import aligner_version
 
     parser.add_argument(
         "--version", action="version",
@@ -267,7 +341,7 @@ def _pairwise(args) -> int:
 
 
 def _prepare_vcf(args) -> int:
-    from calitas_tpu.tools import prepare_vcf
+    from calitas_tpu_torch.tools import prepare_vcf
 
     prepare_vcf.run(
         input=args.input,

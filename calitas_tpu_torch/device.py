@@ -52,7 +52,7 @@ def resolve_engine(
             )
             return None
         if prefer_host_when_native:
-            from calitas_tpu import native
+            from calitas_tpu_torch import native
 
             if native.available():
                 logger.info(

@@ -1,6 +1,8 @@
 """The CUDA screens (``csrc/screen_dual.cu``, ``csrc/screen_multi.cu``,
 ``csrc/screen_rows.cu``): build, wrappers, launch counters and the static
-route between a kernel and its plain version.
+route between a kernel and its plain version.  The roofline probes
+(``csrc/probes.cu``, wrappers in :mod:`~calitas_tpu_torch.ops.probes`)
+are built, loaded and counted here too.
 
 :func:`screen_dual` replaces ``calitas_tpu/ops/dp_pallas2.py::
 _pallas_screen_dual`` (kernel ``_kernel2``), :func:`screen_multi`
@@ -52,6 +54,7 @@ SOURCES = {
     "screen_dual": _CSRC / "screen_dual.cu",
     "screen_multi": _CSRC / "screen_multi.cu",
     "screen_rows": _CSRC / "screen_rows.cu",
+    "probes": _CSRC / "probes.cu",
 }
 BUILD_DIR = _CSRC / "build"
 NVCC_FLAGS = (
@@ -61,7 +64,11 @@ NVCC_FLAGS = (
 
 #: kernel launches by kernel name; callers that need to show a kernel ran
 #: call :func:`reset_launches` and read this afterwards
-launches = {name: 0 for name in SOURCES}
+launches = {
+    name: 0
+    for name in ("screen_dual", "screen_multi", "screen_rows", "ceiling_probe",
+                 "peak_probe")
+}
 
 _libs: dict = {}
 _lib_lock = threading.Lock()
@@ -150,6 +157,10 @@ def _bind(lib: ctypes.CDLL, name: str) -> None:
             vp, vp, vp,  # best, ranges, stream
         ]
         lib.calitas_screen_rows.restype = i32
+    elif name == "probes":
+        for fn in (lib.calitas_ceiling_probe, lib.calitas_peak_probe):
+            fn.argtypes = [vp, i32, ll, i32, i32, vp, vp]  # tcols, T, N, Q, bias, out, stream
+            fn.restype = i32
     else:
         lib.calitas_screen_multi.argtypes = [
             vp, ll, ll, ll, i32, i32,  # genome, len, base0, step, window, n

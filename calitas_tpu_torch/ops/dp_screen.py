@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from calitas_tpu.core.scoring import Scorer
+from calitas_tpu_torch.core.scoring import Scorer
 
 NEG_INF = -(2**30)
 #: gate sentinel for PAM-less chain-B starts: far below any reachable DP

@@ -23,8 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from calitas_tpu.core.scoring import Scorer
-from calitas_tpu.core.sequence import IUPAC_MASK, encode_query
+from calitas_tpu_torch.core.scoring import Scorer
+from calitas_tpu_torch.core.sequence import IUPAC_MASK, encode_query
 from calitas_tpu_torch.ops import dp_cuda
 from calitas_tpu_torch.ops.dp_screen import (
     screen_dual_reference,

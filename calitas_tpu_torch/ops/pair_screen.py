@@ -25,8 +25,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from calitas_tpu.core.scoring import Scorer
-from calitas_tpu.core.sequence import TARGET_MASK_TABLE, encode_query, revcomp
+from calitas_tpu_torch.align.engine import NO_SCREEN
+from calitas_tpu_torch.core.scoring import Scorer
+from calitas_tpu_torch.core.sequence import TARGET_MASK_TABLE, encode_query, revcomp
 from calitas_tpu_torch.ops import dp_cuda
 from calitas_tpu_torch.ops.dp_screen import screen_rows_reference
 
@@ -41,7 +42,7 @@ class PairScreen:
 
     MIN_SLOT = 64
     MAX_SLOT = 8192  # longer targets are reported as unscreened
-    NO_SCREEN = -(2**30)  # sentinel: caller must run the pass unaided
+    NO_SCREEN = NO_SCREEN  # sentinel: caller must run the pass unaided
 
     def __init__(self, scorer: Scorer, device, batch_rows: int = 1 << 15):
         if batch_rows < 1:

@@ -5,7 +5,7 @@ each contig is staged once; every guide's segmented screen is launched
 before any finishing starts, so the device works through all guides'
 segments back to back while the host worker pool finishes earlier
 segments' candidate windows with the batched native aligner
-(``calitas_tpu.parallel.host_pool``).  Only flagged windows are
+(``parallel/host_pool.py``).  Only flagged windows are
 materialized, with the reference's exact window semantics, so the output
 equals the host-only engine's row for row.
 
@@ -30,10 +30,10 @@ from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
-from calitas_tpu.align.engine import SequentialAligner
-from calitas_tpu.core.guide import Guide
-from calitas_tpu.core.sequence import revcomp
-from calitas_tpu.io.fasta import IndexedFasta
+from calitas_tpu_torch.align.engine import SequentialAligner
+from calitas_tpu_torch.core.guide import Guide
+from calitas_tpu_torch.core.sequence import revcomp
+from calitas_tpu_torch.io.fasta import IndexedFasta
 from calitas_tpu_torch.ops import dp_cuda
 from calitas_tpu_torch.ops.genome_screen import GenomeScreen, range_block
 
@@ -209,7 +209,7 @@ def _finish_segments(
     segment's ``(chain_flags [2, n_seg], ranges [2, n_seg, 2])`` from its
     Future in window order, so the worker pool finishes segment N while
     the device screens segment N+1."""
-    from calitas_tpu.parallel.host_pool import (
+    from calitas_tpu_torch.parallel.host_pool import (
         _mp_finish_chunk,
         make_finish_spec,
         map_items_mp,
@@ -233,7 +233,7 @@ def _finish_segments(
             )
             # Widen the coarse range blocks back to 1-based column bounds
             # (the worker trim-shifts, mirrors chain B and clips:
-            # calitas_tpu/align/batch.py::chain_ranges_to_pass).
+            # align/batch.py::chain_ranges_to_pass).
             cr = cranges[:, hit_idx, :].astype(np.int32) * rb
             cr4 = np.stack(
                 [cr[0, :, 0] + 1, cr[0, :, 1] + rb,

@@ -5,7 +5,7 @@ a TSV of (id?, query, chrom, position) in; either all three of
 (max_guide_diffs, max_pam_mismatches, max_overlap) are given (all-hits
 mode) or none (best mode); results are sorted and written per 10k-row
 batch.  Engines:
-  - ``host``: the reference package's batched native finish, by import.
+  - ``host``: the batched native finish of ``parallel/host_pool.py``.
   - ``gpu``: each batch's locus windows go through the pair screen
     (``ops/pair_screen.py``: the CUDA row screen in per-row-query mode, or
     its plain version with ``device="cpu"``) before the same finish.  In
@@ -13,9 +13,8 @@ batch.  Engines:
     passes that can hold a qualifying alignment, and each chain's
     qualifying end-column range for the native sliced finish.  In best
     mode the finish takes nothing from it: its batched native path runs
-    both passes outright, and the per-item fallback would import the JAX
-    package to read a pass-bounds dict, so the port hands it none.  The
-    table is identical either way.
+    both passes outright, so the port hands the per-item fallback no
+    pass-bounds dict either.  The table is identical either way.
   - ``auto``: the list tools' rule of ``device.resolve_engine``.
 A device error propagates; nothing degrades to the host behind the
 caller's back.
@@ -23,19 +22,48 @@ caller's back.
 
 from __future__ import annotations
 
+import logging
 from pathlib import Path
 from typing import Optional
 
-from calitas_tpu.align.engine import SequentialAligner, a2r_region
-from calitas_tpu.core.guide import Guide
-from calitas_tpu.core.scoring import Defaults
-from calitas_tpu.io.fasta import IndexedFasta
-from calitas_tpu.io.tsv import MetricWriter, open_output
-from calitas_tpu.search.hits import HitBuilder, ReferenceHit, sort_hits
-from calitas_tpu.tools.align_to_reference import BATCH_SIZE, core_parameters_string
+from calitas_tpu_torch.align.engine import SequentialAligner, a2r_region
+from calitas_tpu_torch.core.guide import Guide
+from calitas_tpu_torch.core.scoring import Defaults
 from calitas_tpu_torch.device import resolve_engine
+from calitas_tpu_torch.io.fasta import IndexedFasta
+from calitas_tpu_torch.io.tsv import MetricWriter, open_output
+from calitas_tpu_torch.search.hits import HitBuilder, ReferenceHit, sort_hits
 from calitas_tpu_torch.tools.pairwise import dp_query
+from calitas_tpu_torch.utils import camel_to_gnu, scala_option_repr
 
+logger = logging.getLogger("calitas_tpu_torch.AlignToReference")
+
+BATCH_SIZE = 10_000  # AlignToReference.scala:110
+
+
+def core_parameters_string(
+    max_guide_diffs,
+    max_pam_mismatches,
+    max_gaps_between_guide_and_pam,
+    max_overlap,
+    guide_mismatch_net_cost,
+    pam_mismatch_net_cost,
+    genome_gap_net_cost,
+    guide_gap_net_cost,
+) -> str:
+    """AlignToReference.scala:77-86 — note the three optional parameters
+    render as Scala Option strings (None / Some(x))."""
+    params = {
+        "maxGuideDiffs": scala_option_repr(max_guide_diffs),
+        "maxPamMismatches": scala_option_repr(max_pam_mismatches),
+        "maxGapsBetweenGuideAndPam": str(max_gaps_between_guide_and_pam),
+        "maxOverlap": scala_option_repr(max_overlap),
+        "guideMismatchNetCost": str(guide_mismatch_net_cost),
+        "pamMismatchNetCost": str(pam_mismatch_net_cost),
+        "genomeGapNetCost": str(genome_gap_net_cost),
+        "guideGapNetCost": str(guide_gap_net_cost),
+    }
+    return ";".join(sorted(f"{camel_to_gnu(k)}={v}" for k, v in params.items()))
 
 def run(
     input: str | Path,
@@ -111,7 +139,7 @@ def run(
 
     out_fh = open_output(output)
     writer = MetricWriter(out_fh, ReferenceHit)
-    from calitas_tpu.parallel.host_pool import _mp_a2r_chunk, map_items_mp
+    from calitas_tpu_torch.parallel.host_pool import _mp_a2r_chunk, map_items_mp
 
     s = aligner.scorer
     align_kwargs = (
@@ -218,7 +246,7 @@ def run(
         results: list[ReferenceHit] = []
         for (task_id, _q, _c, _p, *_extra), (guide, alns) in map_items_mp(
             batch, spec, threads,
-            worker_fn=_mp_a2r_chunk, to_payload=lambda t: t,
+            worker_fn=_mp_a2r_chunk, to_payload=lambda t: t, logger=logger,
         ):
             b = builder.copy(guide_id=task_id, guide=guide)
             results.extend(b.build(a) for a in alns)

@@ -4,15 +4,14 @@ Port of ``calitas_tpu/tools/pairwise.py`` (PairwiseAlignSequences.scala):
 a whitespace-delimited file of (query, target) pairs in, the 11-column
 table out, with query_start hardcoded to 1 and target_start =
 aln.startOffset.  Engines:
-  - ``host``: the reference package's batched native finish, by import.
+  - ``host``: the batched native finish of ``parallel/host_pool.py``.
   - ``gpu``: the pair screen (``ops/pair_screen.py``: the CUDA row screen
     in per-row-query mode, or its plain version with ``device="cpu"``)
     computes both chains' exact DP maxima for every pair before the same
     host finish.  The finish does not read them: its batched native path
-    runs both strand passes outright (``calitas_tpu/parallel/host_pool.py::
-    _mp_pairwise_chunk``), and the per-pair fallback would import the
-    JAX package to read a pass-bounds dict, so the port hands it none.
-    The table is identical either way.
+    runs both strand passes outright (``parallel/host_pool.py::
+    _mp_pairwise_chunk``), so the port hands the per-pair fallback no
+    pass-bounds dict either.  The table is identical either way.
   - ``auto``: the list tools' rule of ``device.resolve_engine``.
 A device error propagates; nothing degrades to the host behind the
 caller's back.
@@ -24,14 +23,18 @@ import logging
 from pathlib import Path
 from typing import Optional
 
-from calitas_tpu.align.engine import SequentialAligner
-from calitas_tpu.core.guide import Guide
-from calitas_tpu.core.scoring import Defaults
-from calitas_tpu.io.tsv import open_output
-from calitas_tpu.tools.pairwise import COLUMNS
+from calitas_tpu_torch.align.engine import SequentialAligner
+from calitas_tpu_torch.core.guide import Guide
+from calitas_tpu_torch.core.scoring import Defaults
 from calitas_tpu_torch.device import resolve_engine
+from calitas_tpu_torch.io.tsv import open_output
 
 logger = logging.getLogger("calitas_tpu_torch.PairwiseAlignSequences")
+
+COLUMNS = [
+    "query", "target", "score", "query_start", "target_start", "cigar",
+    "mismatches", "gap_bases", "padded_query", "alignment", "padded_target",
+]
 
 
 def dp_query(guide: Optional[Guide]) -> str:
@@ -99,7 +102,7 @@ def run(
             screen_device,
         )
 
-    from calitas_tpu.parallel.host_pool import _mp_pairwise_chunk, map_items_mp
+    from calitas_tpu_torch.parallel.host_pool import _mp_pairwise_chunk, map_items_mp
 
     s = aligner.scorer
     spec = {
@@ -117,7 +120,7 @@ def run(
     out.write("\t".join(COLUMNS) + "\n")
     for (query, target), aln in map_items_mp(
         tasks, spec, threads,
-        worker_fn=_mp_pairwise_chunk, to_payload=lambda t: t,
+        worker_fn=_mp_pairwise_chunk, to_payload=lambda t: t, logger=logger,
     ):
         fields = [
             query,

@@ -1,8 +1,7 @@
 """SearchReference: genome-wide off-target search, reference pass.
 
 Port of ``calitas_tpu/tools/search_reference.py``.  Engines:
-  - ``host``: every window is aligned with the exact host engine (the
-    reference package's own host pass, reused as is).
+  - ``host``: every window is aligned with the exact host engine.
   - ``gpu``: the device screen (``parallel/screen_runner.py``) flags the
     windows with a qualifying end column on either strand, and only those
     are finished on the host.  The screen is exact integer DP, so the
@@ -13,35 +12,58 @@ Port of ``calitas_tpu/tools/search_reference.py``.  Engines:
 With ``variants`` a second pass aligns the VCF's variant haplotype
 windows.  On the gpu engine the variant feeds (native window builder plus
 the device slot screen) start on their own threads before the reference
-pass and are closed on any error in either pass; the host engine runs the
-reference package's host passes as they are.
+pass and are closed on any error in either pass; the host engine's
+variant feeds are lazy threaded iterators drained after its reference
+pass.  Both engines finish the variant windows through the same pool.
 
-Hits are deduplicated, sorted and written as the 34-column table by the
-reference package's finalizer.
+Hits are deduplicated, sorted and written as the 34-column table.
 """
 
 from __future__ import annotations
 
 import logging
+import sys
 import time
 from pathlib import Path
 from typing import Optional, Sequence
 
-from calitas_tpu.align.engine import SequentialAligner
-from calitas_tpu.core.guide import Guide
-from calitas_tpu.core.scoring import Defaults
-from calitas_tpu.io.fasta import IndexedFasta, extract_dictionary
-from calitas_tpu.search.hits import HitBuilder, RenderedBlock
-from calitas_tpu.tools.search_reference import (
-    _finalize,
-    _run_both_passes,
-    _variant_pass,
-    core_parameters_string,
-)
-from calitas_tpu.utils import ProgressLogger
+from calitas_tpu_torch.align.engine import SequentialAligner
+from calitas_tpu_torch.core.guide import Guide
+from calitas_tpu_torch.core.scoring import Defaults
 from calitas_tpu_torch.device import resolve_engine
+from calitas_tpu_torch.io.fasta import IndexedFasta, extract_dictionary
+from calitas_tpu_torch.search.hits import (
+    HitBuilder,
+    ReferenceHit,
+    RenderedBlock,
+    count_rows,
+)
+from calitas_tpu_torch.utils import ProgressLogger, camel_to_gnu
 
 logger = logging.getLogger("calitas_tpu_torch.SearchReference")
+
+
+def core_parameters_string(
+    max_variants, window_size, max_guide_diffs, max_pam_mismatches,
+    max_gaps_between_guide_and_pam, max_total_diffs_actual, max_overlap,
+    guide_mismatch_net_cost, pam_mismatch_net_cost, genome_gap_net_cost,
+    guide_gap_net_cost,
+) -> str:
+    """The aligner_other_parameters column (SearchReference.scala:496-508)."""
+    params = {
+        "maxVariants": max_variants,
+        "windowSize": window_size,
+        "maxGuideDiffs": max_guide_diffs,
+        "maxPamMismatches": max_pam_mismatches,
+        "maxGapsBetweenGuideAndPam": max_gaps_between_guide_and_pam,
+        "maxTotalDiffs": max_total_diffs_actual,
+        "maxOverlap": max_overlap,
+        "guideMismatchNetCost": guide_mismatch_net_cost,
+        "pamMismatchNetCost": pam_mismatch_net_cost,
+        "genomeGapNetCost": genome_gap_net_cost,
+        "guideGapNetCost": guide_gap_net_cost,
+    }
+    return ";".join(sorted(f"{camel_to_gnu(k)}={v}" for k, v in params.items()))
 
 
 def run(
@@ -155,7 +177,7 @@ def run(
     # Parse and index the VCF once per run (SearchReference.scala:227-231).
     vcf_index = None
     if variants is not None:
-        from calitas_tpu.io.vcf import VcfIndex
+        from calitas_tpu_torch.io.vcf import VcfIndex
 
         vcf_index = VcfIndex(variants)
 
@@ -165,8 +187,8 @@ def run(
         progress = ProgressLogger(logger, noun="windows", verb="Processed", unit=25_000)
         _run_both_passes(
             chrom, hits, specs, builders, aligner, ref_file, vcf_index,
-            max_variants, window_size, step_for, False, threads, align_kwargs,
-            progress, logger,
+            max_variants, window_size, step_for, threads, align_kwargs,
+            progress,
         )
     else:
         _screened_passes(
@@ -175,10 +197,7 @@ def run(
             screen_device,
         )
     try:
-        _finalize(
-            hits, max_overlap, dictionary, output, None, run_start, specs,
-            logger,
-        )
+        _finalize(hits, max_overlap, dictionary, output, run_start, specs)
     finally:
         if profiler is not None:
             profiler.stop()
@@ -206,7 +225,6 @@ def _screened_passes(
         if feeds:
             _variant_pass(
                 feeds, hits, specs, builders, aligner, threads, align_kwargs,
-                logger,
             )
             logger.info("Variant windows processed.")
     except BaseException:
@@ -226,9 +244,11 @@ def _start_variant_feeds(
     guide of the group."""
     if vcf_index is None:
         return []
-    from calitas_tpu.parallel.host_pool import BlockFeed
-    from calitas_tpu.search.variants import variant_window_iterator
-    from calitas_tpu_torch.search.variants import screened_variant_windows_multi
+    from calitas_tpu_torch.parallel.host_pool import BlockFeed
+    from calitas_tpu_torch.search.variants import (
+        screened_variant_windows_multi,
+        variant_window_iterator,
+    )
 
     max_guide_diffs = align_kwargs["max_guide_diffs"]
     max_gaps = align_kwargs["max_gaps_between_guide_and_pam"]
@@ -297,3 +317,172 @@ def _screened_reference_pass(
         else:
             hits.extend(rows)
         hits_progress.record(wchrom, wstart, n=len(rows))
+
+
+def _run_both_passes(
+    chrom, hits, specs, builders, aligner, ref_file, variants, max_variants,
+    window_size, step_for, threads, align_kwargs, progress,
+):
+    """Both search passes on the host engine (reference windows + variant
+    windows) for one chromosome restriction (or the whole genome when
+    chrom is None), appending ReferenceHits to ``hits``."""
+    variant_feeds = _host_variant_feeds(
+        chrom, specs, ref_file, variants, max_variants, align_kwargs,
+    )
+    _host_reference_pass(
+        chrom, hits, specs, builders, aligner, ref_file, window_size,
+        step_for, threads, align_kwargs, progress,
+    )
+    logger.info("Reference windows processed.")
+    if variant_feeds is not None:
+        _variant_pass(
+            variant_feeds, hits, specs, builders, aligner, threads,
+            align_kwargs,
+        )
+        logger.info("Variant windows processed.")
+
+
+def _host_reference_pass(
+    chrom, hits, specs, builders, aligner, ref_file, window_size, step_for,
+    threads, align_kwargs, progress,
+):
+    """Pass 1 on the host engine: every window of the unaltered reference
+    (SearchReference.scala:527-564)."""
+    from calitas_tpu_torch.parallel.host_pool import make_align_spec, map_windows_mp
+    from calitas_tpu_torch.search.windows import window_iterator
+
+    for gid, gstr, g in specs:
+        guide_length = len(gstr)
+        windows = (
+            w
+            for w in window_iterator(ref_file, window_size, step_for(gstr), chrom)
+            if len(w.bases) >= guide_length
+        )
+        spec = make_align_spec(g, aligner, align_kwargs)
+        b = builders[gid]
+        for window, results in map_windows_mp(
+            windows, spec, threads, swallow_errors=True, logger=logger
+        ):
+            for a in results:
+                hits.append(b.build(a))
+            progress.record(window.chrom, window.start)
+
+
+def _host_variant_feeds(
+    chrom, specs, ref_file, variants, max_variants, align_kwargs,
+):
+    """The host engine's variant-pass feeds, one per guide padding group
+    (guides of one padding see one window stream,
+    SearchReference.scala:217-256): ``[(gspecs, feed)]``, or None without
+    a VCF.  Each feed is a lazy threaded iterator of window blocks, every
+    window tagged with all of its group's guides."""
+    if variants is None:
+        return None
+    from calitas_tpu_torch.parallel.host_pool import iter_blocks_threaded
+    from calitas_tpu_torch.search.variants import variant_window_iterator
+
+    max_guide_diffs = align_kwargs["max_guide_diffs"]
+    max_gaps = align_kwargs["max_gaps_between_guide_and_pam"]
+    groups: dict[int, list] = {}
+    for spec in specs:
+        padding = spec[2].length - 1 + max_guide_diffs + max_gaps
+        groups.setdefault(padding, []).append(spec)
+
+    # A generator FUNCTION, not a genexp: the group's id set must bind at
+    # creation — feeds are drained after this loop ends, when a genexp's
+    # free variables would hold the LAST group's values.
+    def _tag_all(stream, ids):
+        for w in stream:
+            yield w, ids
+
+    feeds = []
+    for padding, gspecs in groups.items():
+        vwindows = variant_window_iterator(
+            ref_file, variants, chrom, padding, max_variants,
+        )
+        flagged = _tag_all(vwindows, frozenset(g[0] for g in gspecs))
+        feeds.append((gspecs, iter_blocks_threaded(flagged, 8192, depth=2)))
+    return feeds
+
+
+def _variant_pass(
+    variant_feeds, hits, specs, builders, aligner, threads, align_kwargs,
+):
+    """Pass 2: reference with variants (SearchReference.scala:570-630) —
+    drain the feeds through the finish pool.  Window DP fans out to the
+    worker pool in blocks; variant bookkeeping (lift-back, annotation,
+    row build) stays in this process, where the VariantWindow lives."""
+    from calitas_tpu_torch.parallel.host_pool import (
+        _mp_align_chunk_batched,
+        make_align_spec,
+        map_items_mp,
+    )
+    from calitas_tpu_torch.search.variants import flank_and_absolutize
+
+    vprogress = ProgressLogger(
+        logger, noun="variant windows", verb="Processed", unit=100_000
+    )
+    per_guide_rows: dict[str, list] = {gid: [] for gid, _, _ in specs}
+    for gspecs, feed in variant_feeds:
+        specs_by_gid = {
+            gid: make_align_spec(g, aligner, align_kwargs)
+            for gid, _gstr, g in gspecs
+        }
+        for block in feed:
+            for gid, _gstr, _g in gspecs:
+                wins = [vw for vw, keys in block if gid in keys]
+                if not wins:
+                    continue
+                b = builders[gid]
+                rows = per_guide_rows[gid]
+                for vw, results in map_items_mp(
+                    wins, specs_by_gid[gid], threads,
+                    worker_fn=_mp_align_chunk_batched,
+                    to_payload=lambda vw: (vw.chrom, 1, vw.bases, ("fwd", "rev")),
+                    swallow_errors=True, logger=logger,
+                ):
+                    for a in flank_and_absolutize(results, vw):
+                        rows.append(b.build(a, vw.variants))
+            for vw, _keys in block:
+                vprogress.record(vw.chrom, vw.start)
+    # Guide-major append order (keeps dedup/sort tie-breaks
+    # insertion-stable).
+    for gid, _, _ in specs:
+        hits.extend(per_guide_rows[gid])
+
+
+def _finalize(hits, max_overlap, dictionary, output, run_start, specs):
+    """Global dedup, sort, write, stats (SearchReference.scala:637-648).
+    Dedup, sort and serialization are fused: block-sourced keepers write
+    as raw blob slices, byte-identical to writing the deduped, sorted
+    rows one by one."""
+    from calitas_tpu_torch.io.tsv import fields_of
+    from calitas_tpu_torch.search.hits import dedup_sort_serialize
+
+    logger.info("Sorting and Outputting.")
+    body, n_keep, n_fwd = dedup_sort_serialize(hits, max_overlap, dictionary)
+    if n_keep:
+        fwd_fraction = n_fwd / n_keep
+        if fwd_fraction > 0.52 or fwd_fraction < 0.48:
+            logger.warning(
+                "Strand imbalance: %f of alignments are on the F strand.",
+                fwd_fraction,
+            )
+
+    header = "\t".join(fields_of(ReferenceHit)) + "\n"
+    if output is None or str(output) in ("-", "/dev/stdout"):
+        sys.stdout.write(header)
+        sys.stdout.write(body.decode("utf-8"))
+        sys.stdout.flush()
+    else:
+        with open(output, "wb") as out_fh:
+            out_fh.write(header.encode("utf-8"))
+            out_fh.write(body)
+
+    elapsed = time.perf_counter() - run_start
+    total_bases = sum(e.length for e in dictionary) if dictionary else 0
+    logger.info(
+        "Done: %d guides, %s genome bases, %d raw hits, %d kept, %.1fs (%.2g bases/s).",
+        len(specs), f"{total_bases:,}", count_rows(hits), n_keep, elapsed,
+        (total_bases * len(specs)) / elapsed if elapsed > 0 else 0.0,
+    )

@@ -2,19 +2,22 @@
 """Smoke run of the PyTorch/CUDA port (calitas_tpu_torch) on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It imports nothing of JAX.  Phases, each raising on failure:
+It imports nothing of JAX and nothing of the JAX package ``calitas_tpu``:
+the golden configurations' inputs come from ``calitas_tpu_torch.goldens``.
+Phases, each raising on failure:
 
 1. Device: a CUDA device is required; prints the card's name and power
-   limit and whether the native host finish library loaded.
-2. Build: compiles the CUDA screen kernels from ``calitas_tpu_torch/csrc``,
-   one nvcc per source, started together.
+   limit and whether the port's native host finish library loaded.
+2. Build: compiles the CUDA kernels from ``calitas_tpu_torch/csrc`` (the
+   three screens and the roofline probes), one nvcc per source, started
+   together.
 3. Kernel vs plain: on a seeded 40 Mb annotated genome with planted guide
    sites, the kernel's best scores and end-column ranges must equal its
    plain PyTorch version bit for bit (query lengths 20/24/48, PAM gate on
    and off, windows 40/64/1000/1003/2500); times both at the main path's
    shape (window 1000, 20-base guide, one segment of the 40 Mb contig).
-4. Main path: golden config 3 (benchmarks/run_configs.py: a 40 Mb
-   synthetic chr21-scale contig with 40 planted sites) through the port's
+4. Main path: golden config 3 (a 40 Mb synthetic chr21-scale contig with
+   40 planted sites) through the port's
    CLI with ``--engine gpu``; the table must equal
    benchmarks/golden/config3.txt.gz with time_stamp and aligner_version
    blanked, the kernel must have launched at least once per segment, and
@@ -25,20 +28,21 @@ It imports nothing of JAX.  Phases, each raising on failure:
    windows 40/64/1000/1003) and on slot batches (B 8192, T 64/128/512, gate
    off); times the kernel at G 4/8/16 and the plain version at G 4 on one
    segment of the main path's shape.
-6. Golden config 5s: run_configs.config5s's four same-length guides over
+6. Golden config 5s: config 5s's four same-length guides over
    its 10 Mb contig, as a ``--guide-file`` through the port's CLI; the
    table must equal benchmarks/golden/config5s.txt.gz, the multi-guide
    kernel must have launched at least once per segment, the dual kernel
    and the plain versions never.  Times the fused screen against four
    dual-kernel launches at that shape.
-7. Golden config 4: run_configs.config4's 5 Mb contig and 2,000 SNVs,
-   prepared with PrepareVcf, through the CLI with ``-v``; the table must
+7. Golden config 4: config 4's 5 Mb contig and 2,000 SNVs, prepared with
+   the port's PrepareVcf, through the CLI with ``-v``; the table must
    equal benchmarks/golden/config4.txt and the slot-mode multi-guide
    kernel must have launched.
 8. Variant pass at scale: config 3's 40 Mb contig with 160,000 seeded
    SNVs (one per 250 bases) through the CLI with ``-v``, on the card and
    with ``--device cpu`` (the plain versions); the tables must be
-   identical.  Prints each pass's wall time and the variant-window count.
+   identical and the finish pool must not break.  Prints each pass's wall
+   time, the variant-window count and the pool's size.
 9. Row kernel vs plain: the row screen (``csrc/screen_rows.cu``) must equal
    its plain PyTorch version bit for bit in shared-query mode (B 8192 x T
    64/128/512, and B 41,238 x T 1000 with ragged lengths, at Q 1/20/24/48)
@@ -46,35 +50,49 @@ It imports nothing of JAX.  Phases, each raising on failure:
    ranges on and off); times both at B 41,238 x T 1000, Q 20 (shared) and
    20,000 x 256 (per-row).
 10. Golden configs 1 (PairwiseAlignSequences) and 2 (AlignToReference)
-   through the port's CLI with ``--engine gpu``: the tables must equal
-   the goldens, the row kernel must have launched and no plain version
-   may run on the card (each pair-screen chunk makes one screen call, so
-   then every chunk launched the kernel).
+   through the port's CLI with ``--engine gpu`` and ``--engine host``: the
+   tables must equal the goldens, the row kernel must have launched and
+   no plain version may run on the card (each pair-screen chunk makes one
+   screen call, so then every chunk launched the kernel).
 11. The list tools at scale: 20,000 hit-dense pairs, and AlignToReference
    all-hits (``-w 200 -d 4 -p 1 -O 5``) at 20,000 loci on config 3's 40 Mb
    contig, each with config 3's guide and a 24-base 5'-PAM guide, on
-   ``--engine gpu`` and ``--engine host``: the tables must be identical.
-   Prints both wall times.
+   ``--engine gpu`` and ``--engine host``: the tables must be identical
+   and the finish pool must not break.  Prints both wall times.
 12. A guide whose DP query is 50 bases (over the kernels' 48) through
    SearchReference on config 2's 2 Mb contig on the card and with
    ``--device cpu``: the tables must be identical, the route must be
    logged, the plain screen must have run on the card and no screen
    kernel for it.
+13. Roofline probes: the Q 20 probes' SASS must hold at least one max
+   instruction per add+max pair of a column (nothing folded); each probe
+   (``csrc/probes.cu``) must equal its plain
+   PyTorch version bit for bit at a small shape and at
+   benchmarks/screen_ab.py's (T 1024, N 32,768, Q 20); times both there;
+   then ``ops/probes.py::roofline`` times both probes there and on a
+   card-filling shape (N = SMs x 2048) and the three screen kernels at
+   their main-path shapes, and prints each one's bound and share.
+
+After the phases, passed or not, it stops every process it started and
+waits for each to end: the finish pool's workers, then the resource
+tracker of the pool's spawn context, then any other descendant.
 
 The line before the last is a JSON object describing the kernels (the
 launch counts are those of the main paths: phase 4 for the dual kernel,
 phases 6 and 7 for the multi-guide kernel, the gpu runs of phases 10 and
-11 for the row kernel); the last line is ``{"ok": true, "device":
-{...}}``.  Exits non-zero, without that line, when there is no CUDA device
-or the repository is missing.
+11 for the row kernel, phase 13's roofline run for the probes; the row
+kernel's times are those of the list tools' per-row mode; each bound is
+that of the timed call's inputs); the last line is ``{"ok":
+true, "device": {...}}``.  Exits non-zero, without that line, when there
+is no CUDA device or the repository is missing.
 """
 
 from __future__ import annotations
 
 import gzip
-import importlib.util
 import json
 import logging
+import os
 import subprocess
 import sys
 import tempfile
@@ -99,10 +117,28 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_summary(path: Path) -> str:
+    """Registers per kernel instantiation and spill bytes, from ptxas's
+    ``-v`` report of one build (written beside the library at build
+    time; a library built by an earlier process has its report too)."""
+    import re
+
+    text = path.read_text()
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)]
+    probes = {k: [int(r) for r in re.findall(
+        rf"{k}ILi(?:20|48)E.*?\n.*?\n.*?Used (\d+) registers", text)]
+        for k in ("ceiling_kernel", "peak_kernel")}
+    return (f"{len(regs)} instantiations, registers {min(regs)}-{max(regs)}, "
+            f"{sum(1 for b in spills if b)} with spills ({sum(spills)} bytes)"
+            + (f"; Q 20/48: {probes}" if any(probes.values()) else ""))
+
+
 def synthetic_genome(np, n: int, seed: int, protos: list) -> "np.ndarray":
     """Random ACGT bytes with mutated copies of each protospacer (plus a
     PAM, on either strand) planted throughout."""
-    from calitas_tpu.core.sequence import revcomp
+    from calitas_tpu_torch.core.sequence import revcomp
 
     rng = np.random.default_rng(seed)
     bases = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n, dtype=np.uint8)]
@@ -123,27 +159,21 @@ def synthetic_genome(np, n: int, seed: int, protos: list) -> "np.ndarray":
 def cuda_time_ms(torch, fn, reps: int) -> float:
     """Mean milliseconds per call of ``fn`` on the card (CUDA events, after
     one warm-up call)."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from calitas_tpu_torch.ops.probes import cuda_time_ms as timed
+
+    return timed(fn, reps)
 
 
 def kernel_vs_plain(torch, np, dp_cuda, dp_screen, gs, scorer, device):
     """Phase 3: returns (max_abs_err over all cases, kernel ms, plain ms,
-    the annotated genome)."""
+    the annotated genome, the timed call's window count)."""
     rng = np.random.default_rng(11)
     protos = {
         20: GUIDE[:20],
         24: "".join("ACGT"[i] for i in rng.integers(0, 4, 24)),
         48: "".join("ACGT"[i] for i in rng.integers(0, 4, 48)),
     }
-    from calitas_tpu.core.sequence import encode_query, revcomp
+    from calitas_tpu_torch.core.sequence import encode_query, revcomp
 
     t0 = time.perf_counter()
     raw = synthetic_genome(np, CONTIG, 7, list(protos.values()))
@@ -201,7 +231,7 @@ def kernel_vs_plain(torch, np, dp_cuda, dp_screen, gs, scorer, device):
     log(f"[kernel] main-path shape (window 1000, Q 20, gate on, one segment of "
         f"{kw['n_windows']} windows of the 40 Mb contig): kernel {kernel_ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms")
-    return max_err, kernel_ms, plain_ms, genome
+    return max_err, kernel_ms, plain_ms, genome, kw["n_windows"]
 
 
 def norm_rows(text: str) -> list:
@@ -218,19 +248,10 @@ def norm_rows(text: str) -> list:
     return out
 
 
-def load_configs(tmp: Path):
-    """benchmarks/run_configs.py with its output directory set to ``tmp``
-    (its build_ref reuses a reference already built there)."""
-    spec = importlib.util.spec_from_file_location(
-        "run_configs", ROOT / "benchmarks" / "run_configs.py"
-    )
-    configs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(configs)
-    configs.OUT = tmp
-    return configs
+def golden_rows(config: str) -> list:
+    from calitas_tpu_torch.goldens import GOLDEN
 
-
-def golden_rows(name: str) -> list:
+    name = GOLDEN[config]
     path = ROOT / "benchmarks" / "golden" / name
     data = path.read_bytes()
     return norm_rows((gzip.decompress(data) if name.endswith(".gz") else data).decode())
@@ -255,18 +276,18 @@ def run_cli(torch, cli, argv: list) -> float:
     return time.perf_counter() - t0
 
 
-def main_path(torch, dp_cuda, dp_screen, gs, scorer, device, configs, tmp: Path) -> int:
+def main_path(torch, dp_cuda, dp_screen, gs, scorer, device, tmp: Path) -> int:
     """Phase 4: golden config 3 through the port's CLI; returns the
     kernel launches of that run."""
-    from calitas_tpu.io.fasta import IndexedFasta
-    from calitas_tpu_torch import cli
+    from calitas_tpu_torch import cli, goldens
+    from calitas_tpu_torch.io.fasta import IndexedFasta
 
     t0 = time.perf_counter()
-    ref = configs.build_ref(CONTIG, 3, "c3chr21")
+    argv = goldens.config3(tmp)
+    ref = argv[argv.index("-r") + 1]
     log(f"[config3] reference built in {time.perf_counter() - t0:.3f} s")
     out = tmp / "config3.txt"
-    argv = ["SearchReference", "-i", GUIDE, "-I", "bench", "-r", str(ref),
-            "-o", str(out), "-d", "5", "-p", "1", "--engine", "gpu"]
+    argv = [*argv, "-o", str(out), "--engine", "gpu"]
 
     dp_cuda.reset_launches()
     dp_screen.reference_calls["cuda"] = 0
@@ -275,7 +296,7 @@ def main_path(torch, dp_cuda, dp_screen, gs, scorer, device, configs, tmp: Path)
     plain_on_card = dp_screen.reference_calls["cuda"]
 
     got = norm_rows(out.read_text())
-    want = golden_rows("config3.txt.gz")
+    want = golden_rows("3")
     assert_same_table(got, want, "config3 table differs from golden")
     fasta = IndexedFasta(ref)
     step = DEFAULT_STEP
@@ -291,7 +312,7 @@ def main_path(torch, dp_cuda, dp_screen, gs, scorer, device, configs, tmp: Path)
 
     # Screen alone on the same contig: stage + annotate + kernel + readback.
     screen = gs.GenomeScreen(scorer, device, window=1000)
-    from calitas_tpu.core.sequence import revcomp
+    from calitas_tpu_torch.core.sequence import revcomp
 
     q = GUIDE[:20]
     bases = fasta.get_bases("chr21")
@@ -313,7 +334,7 @@ def main_path(torch, dp_cuda, dp_screen, gs, scorer, device, configs, tmp: Path)
 
 def guide_qvals(np, protos: list) -> "np.ndarray":
     """[G, 2, Q] int32 chain-A and chain-B query masks of the protospacers."""
-    from calitas_tpu.core.sequence import encode_query, revcomp
+    from calitas_tpu_torch.core.sequence import encode_query, revcomp
 
     return np.stack(
         [np.stack([encode_query(p), encode_query(revcomp(p))]) for p in protos]
@@ -405,31 +426,26 @@ def multi_vs_plain(torch, np, dp_cuda, dp_screen, gs, scorer, genome, screen):
     return max_err, kernel_ms, plain_ms
 
 
-def config5s(torch, np, dp_cuda, dp_screen, gs, scorer, device, configs, tmp: Path) -> int:
+def config5s(torch, np, dp_cuda, dp_screen, gs, scorer, device, tmp: Path) -> int:
     """Phase 6: golden config 5s through the port's CLI with a guide file;
     returns the multi-guide kernel's launches in that run."""
-    from calitas_tpu_torch import cli
+    from calitas_tpu_torch import cli, goldens
 
     n_bases = 10_000_000
     t0 = time.perf_counter()
-    ref = configs.build_ref(n_bases, 5, "c5ref")
-    rng = np.random.default_rng(5)  # run_configs.config5s's guides
-    guides = [("g%d" % i, "".join(rng.choice(list("ACGT"), 20)) + "nrg")
-              for i in range(4)]
-    guides[0] = ("g0", GUIDE)
-    gfile = tmp / "config5s_guides.tsv"
-    gfile.write_text("guide_id\tguide\n" + "".join(f"{i}\t{g}\n" for i, g in guides))
+    argv = goldens.config5s(tmp)
+    ref = argv[argv.index("-r") + 1]
+    guides = goldens.config5s_guides()
     log(f"[config5s] reference built in {time.perf_counter() - t0:.3f} s; guides "
         + " ".join(g for _i, g in guides))
     out = tmp / "config5s.txt"
     dp_cuda.reset_launches()
     dp_screen.reference_calls["cuda"] = 0
-    e2e = run_cli(torch, cli, ["SearchReference", "--guide-file", str(gfile), "-r",
-                               str(ref), "-o", str(out), "--engine", "gpu"])
+    e2e = run_cli(torch, cli, [*argv, "-o", str(out), "--engine", "gpu"])
     launches = dict(dp_cuda.launches)
     plain_on_card = dp_screen.reference_calls["cuda"]
     got = norm_rows(out.read_text())
-    assert_same_table(got, golden_rows("config5s.txt.gz"), "config5s table differs from golden")
+    assert_same_table(got, golden_rows("5s"), "config5s table differs from golden")
     screen = gs.GenomeScreen(scorer, device, window=1000)
     n = len(screen.window_starts(n_bases, DEFAULT_STEP))
     n_segments = len(screen.segment_spans(n))
@@ -444,8 +460,7 @@ def config5s(torch, np, dp_cuda, dp_screen, gs, scorer, device, configs, tmp: Pa
         raise AssertionError("config5s took the dual kernel or the plain version")
 
     # The fused screen against four dual launches at this shape.
-    from calitas_tpu.io.fasta import IndexedFasta
-    from calitas_tpu.core.sequence import revcomp
+    from calitas_tpu_torch.io.fasta import IndexedFasta
 
     genome = gs.annotate_genome_pam(
         screen.stage(IndexedFasta(ref).get_bases("chr21")),
@@ -467,39 +482,22 @@ def config5s(torch, np, dp_cuda, dp_screen, gs, scorer, device, configs, tmp: Pa
     return launches["screen_multi"]
 
 
-def config4(torch, np, dp_cuda, dp_screen, configs, tmp: Path) -> int:
+def config4(torch, dp_cuda, dp_screen, tmp: Path) -> int:
     """Phase 7: golden config 4 (5 Mb + 2,000 PrepareVcf'd SNVs) through
     the port's CLI with -v; returns the multi-guide kernel's launches."""
-    from calitas_tpu.tools import prepare_vcf
-    from calitas_tpu_torch import cli
+    from calitas_tpu_torch import cli, goldens
 
-    n = 5_000_000
     t0 = time.perf_counter()
-    ref = configs.build_ref(n, 4, "c4chr21")
-    rng = np.random.default_rng(4)  # run_configs.config4's VCF, as it writes it
-    raw_vcf = tmp / "raw.vcf"
-    with open(raw_vcf, "w") as fh:
-        fh.write("##fileformat=VCFv4.2\n")
-        fh.write('##INFO=<ID=AF,Number=A,Type=Float,Description="AF">\n')
-        fh.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
-        for pos in sorted(rng.integers(1000, n - 1000, size=2000)):
-            ref_b = rng.choice(list("ACGT"))
-            alt = rng.choice([c for c in "ACGT" if c != ref_b])
-            af = float(rng.uniform(0.01, 0.5))
-            fh.write(f"chr21\t{pos}\trs{pos}\t{ref_b}\t{alt}\t50\tPASS\tAF={af:.3f}\n")
-    prepared = tmp / "prepared.vcf"
-    prepare_vcf.run(input=[raw_vcf], output=prepared, add_chr_prefix=False)
+    argv = goldens.config4(tmp)
     log(f"[config4] reference and VCF built in {time.perf_counter() - t0:.3f} s")
     out = tmp / "config4.txt"
     dp_cuda.reset_launches()
     dp_screen.reference_calls["cuda"] = 0
-    e2e = run_cli(torch, cli, ["SearchReference", "-i", GUIDE, "-I", "bench", "-r",
-                               str(ref), "-v", str(prepared), "-o", str(out),
-                               "--engine", "gpu"])
+    e2e = run_cli(torch, cli, [*argv, "-o", str(out), "--engine", "gpu"])
     launches = dict(dp_cuda.launches)
     plain_on_card = dp_screen.reference_calls["cuda"]
     got = norm_rows(out.read_text())
-    assert_same_table(got, golden_rows("config4.txt"), "config4 table differs from golden")
+    assert_same_table(got, golden_rows("4"), "config4 table differs from golden")
     log(f"[config4] table == golden ({len(got) - 1} rows); slot-mode multi-guide kernel "
         f"launches {launches['screen_multi']}; dual kernel launches "
         f"{launches['screen_dual']}; plain versions on the card {plain_on_card}; "
@@ -509,6 +507,37 @@ def config4(torch, np, dp_cuda, dp_screen, configs, tmp: Path) -> int:
     if plain_on_card != 0:
         raise AssertionError("config4 ran the plain version on the card")
     return launches["screen_multi"]
+
+
+class PoolWatch(logging.Handler):
+    """Warnings of the port's loggers that say the finish pool broke, and
+    the finish pool's size at the end of a phase."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.broken = []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if "Worker pool broken" in msg:
+            self.broken.append(f"{record.name}: {msg}")
+
+    def __enter__(self):
+        logging.getLogger("calitas_tpu_torch").addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger("calitas_tpu_torch").removeHandler(self)
+
+    def check(self, what: str) -> int:
+        """Raises if the pool broke; returns the pool's worker count (0 =
+        every finish ran in-process: no stream was long enough to fan
+        out)."""
+        from calitas_tpu_torch.parallel import host_pool
+
+        if self.broken:
+            raise AssertionError(f"{what}: the finish pool broke: {self.broken[:2]}")
+        return host_pool._SHARED_POOL_SIZE if host_pool._SHARED_POOL is not None else 0
 
 
 class PassClock(logging.Handler):
@@ -532,15 +561,16 @@ class PassClock(logging.Handler):
         return r - a, v - r
 
 
-def variants_at_scale(torch, np, dp_cuda, configs, tmp: Path) -> None:
+def variants_at_scale(torch, np, dp_cuda, tmp: Path) -> None:
     """Phase 8: 40 Mb + 160,000 SNVs, on the card and through the plain
-    versions on the CPU; the two tables must be identical."""
-    from calitas_tpu.io.fasta import IndexedFasta
-    from calitas_tpu.io.vcf import VcfIndex
-    from calitas_tpu.search.variants import _WindowBlock, variant_window_iterator
-    from calitas_tpu_torch import cli
+    versions on the CPU; the two tables must be identical and the finish
+    pool must not break."""
+    from calitas_tpu_torch import cli, goldens
+    from calitas_tpu_torch.io.fasta import IndexedFasta
+    from calitas_tpu_torch.io.vcf import VcfIndex
+    from calitas_tpu_torch.search.variants import _WindowBlock, variant_window_iterator
 
-    ref = configs.build_ref(CONTIG, 3, "c3chr21")
+    ref = goldens.build_ref(tmp, CONTIG, 3, "c3chr21")
     bases = IndexedFasta(ref).get_bases("chr21")
     rng = np.random.default_rng(160_000)
     n_snv = CONTIG // 250  # one per 250 bases: 160,000 on the 40 Mb contig
@@ -566,31 +596,39 @@ def variants_at_scale(torch, np, dp_cuda, configs, tmp: Path) -> None:
     clock = PassClock()
     logging.getLogger("calitas_tpu_torch.SearchReference").addHandler(clock)
     try:
-        dp_cuda.reset_launches()
-        e2e = run_cli(torch, cli, [*argv, "-o", str(tmp / "v_cuda.txt")])
-        launches = dict(dp_cuda.launches)
-        ref_s, var_s = clock.passes()
-        t0 = time.perf_counter()
-        run_cli(torch, cli, [*argv, "-o", str(tmp / "v_cpu.txt"), "--device", "cpu"])
-        cpu_s = time.perf_counter() - t0
+        with PoolWatch() as pool:
+            dp_cuda.reset_launches()
+            e2e = run_cli(torch, cli, [*argv, "-o", str(tmp / "v_cuda.txt")])
+            launches = dict(dp_cuda.launches)
+            ref_s, var_s = clock.passes()
+            # Again, warm: the finish pool's workers are up.
+            e2e_warm = run_cli(torch, cli, [*argv, "-o", str(tmp / "v_cuda2.txt")])
+            ref_warm, var_warm = clock.passes()
+            t0 = time.perf_counter()
+            run_cli(torch, cli, [*argv, "-o", str(tmp / "v_cpu.txt"), "--device", "cpu"])
+            cpu_s = time.perf_counter() - t0
     finally:
         logging.getLogger("calitas_tpu_torch.SearchReference").removeHandler(clock)
+    workers = pool.check("variant run")
     got = norm_rows((tmp / "v_cuda.txt").read_text())
-    assert_same_table(got, norm_rows((tmp / "v_cpu.txt").read_text()),
-                      "variant run: card and plain tables differ")
+    for other in ("v_cpu.txt", "v_cuda2.txt"):
+        assert_same_table(got, norm_rows((tmp / other).read_text()),
+                          f"variant run: v_cuda.txt and {other} differ")
     n_var_rows = sum(1 for r in got[1:] if r[got[0].index("variant_vcf")])
     log(f"[variants] {CONTIG} bases + {n_snv} SNVs: tables identical on the card and "
         f"--device cpu ({len(got) - 1} rows, {n_var_rows} with variants); "
         f"{n_windows} variant windows; card run {e2e:.3f} s end to end, reference "
-        f"pass {ref_s:.3f} s, variant pass after it {var_s:.3f} s; kernel launches "
-        f"{launches}; --device cpu run {cpu_s:.3f} s")
+        f"pass {ref_s:.3f} s, variant pass after it {var_s:.3f} s; again, warm, "
+        f"{e2e_warm:.3f} s, {ref_warm:.3f} s and {var_warm:.3f} s; kernel launches "
+        f"{launches}; --device cpu run {cpu_s:.3f} s; finish pool {workers} workers, "
+        "never broken")
     if launches["screen_multi"] < 1:
         raise AssertionError("the variant pass never launched the multi-guide kernel")
 
 
 def rows_vs_plain(torch, np, dp_cuda, dp_screen, scorer, device):
     """Phase 9: returns (max_abs_err over all cases, {mode: (kernel ms,
-    plain ms)})."""
+    plain ms)}, {mode: row lengths of the timed call})."""
     rng = np.random.default_rng(9)
     sk = dict(match=scorer.match_score, mismatch=scorer.mismatch_score,
               qgap=scorer.query_gap_score, tgap=scorer.target_gap_score)
@@ -674,7 +712,8 @@ def rows_vs_plain(torch, np, dp_cuda, dp_screen, scorer, device):
         f"{times['shared'][0]:.4f} ms, plain {times['shared'][1]:.4f} ms; per-row "
         f"query, both chains, B 20000 x slot 256, Q 20, ranges on: kernel "
         f"{times['per-row'][0]:.4f} ms, plain {times['per-row'][1]:.4f} ms")
-    return max_err, times
+    return max_err, times, {"shared": main_shared[2].cpu().numpy(),
+                            "per-row": main_rows[2].cpu().numpy()}
 
 
 def pair_screen_run(torch, cli, dp_cuda, dp_screen, argv: list):
@@ -697,37 +736,27 @@ def check_kernel_route(what: str, launches: int, plain: int) -> None:
                              "calls on the card")
 
 
-def goldens_1_2(torch, dp_cuda, dp_screen, configs) -> int:
+def goldens_1_2(torch, dp_cuda, dp_screen, tmp: Path) -> int:
     """Phase 10: golden configs 1 and 2 through the port's CLI with
-    ``--engine gpu``; returns the row kernel's launches in those runs.
-    run_configs.config1/config2 write their inputs and call the reference
-    tools, which are swapped for the port's CLI here."""
-    from calitas_tpu.tools import align_to_reference, pairwise
-    from calitas_tpu_torch import cli
+    ``--engine gpu`` and ``--engine host``; returns the row kernel's
+    launches in the gpu runs."""
+    from calitas_tpu_torch import cli, goldens
 
-    runs = {}
-
-    def port(name, argv):
-        runs[name] = pair_screen_run(torch, cli, dp_cuda, dp_screen,
-                                     [*argv, "--engine", "gpu"])
-
-    saved = pairwise.run, align_to_reference.run
-    pairwise.run = lambda input, output: port(
-        "config1", ["PairwiseAlignSequences", "-i", input, "-o", output])
-    align_to_reference.run = lambda input, ref, output, window_size: port(
-        "config2", ["AlignToReference", "-i", input, "-r", ref, "-o", output,
-                    "-w", window_size])
-    try:
-        configs.config1()
-        configs.config2()
-    finally:
-        pairwise.run, align_to_reference.run = saved
     launches = 0
-    for name in ("config1", "config2"):
-        wall, n, plain = runs[name]
-        got = norm_rows((configs.OUT / f"{name}.txt").read_text())
-        assert_same_table(got, golden_rows(f"{name}.txt"), f"{name} table differs from golden")
-        log(f"[{name}] table == golden ({len(got) - 1} rows); end to end {wall:.3f} s")
+    for config in ("1", "2"):
+        name = f"config{config}"
+        argv = goldens.CONFIGS[config](tmp)
+        wall, n, plain = pair_screen_run(
+            torch, cli, dp_cuda, dp_screen,
+            [*argv, "-o", tmp / f"{name}_gpu.txt", "--engine", "gpu"])
+        host_wall = run_cli(torch, cli, [*argv, "-o", tmp / f"{name}_host.txt",
+                                         "--engine", "host"])
+        for engine in ("gpu", "host"):
+            got = norm_rows((tmp / f"{name}_{engine}.txt").read_text())
+            assert_same_table(got, golden_rows(config),
+                              f"{name} --engine {engine} table differs from golden")
+        log(f"[{name}] table == golden on --engine gpu and --engine host "
+            f"({len(got) - 1} rows); end to end gpu {wall:.3f} s, host {host_wall:.3f} s")
         check_kernel_route(name, n, plain)
         launches += n
     return launches
@@ -737,9 +766,8 @@ G5 = "tttv" + "GATCCGTAGCTAGGCATTACGGTA"  # a 24-base protospacer after a 5' PAM
 
 
 def planted_sites(np, n: int, seed: int, plant: int = 40) -> list:
-    """Positions of the sites benchmarks/run_configs.py's synth_genome
-    plants, found by replaying its random draws without building the
-    genome."""
+    """Positions of the sites goldens.synth_genome plants, found by
+    replaying its random draws without building the genome."""
     rng = np.random.default_rng(seed)
     rng.integers(0, 4, n)  # the genome's bases
     proto = GUIDE[:-3]
@@ -755,11 +783,12 @@ def planted_sites(np, n: int, seed: int, plant: int = 40) -> list:
     return out
 
 
-def list_tool_inputs(np, configs, tmp: Path) -> dict:
+def list_tool_inputs(np, tmp: Path) -> dict:
     """Phase 11's inputs: ``{name: CLI argv without -o and --engine}`` for
     20,000 pairs and 20,000 A2R loci on config 3's contig."""
-    from calitas_tpu.core.sequence import revcomp
-    from calitas_tpu.io.fasta import IndexedFasta
+    from calitas_tpu_torch import goldens
+    from calitas_tpu_torch.core.sequence import revcomp
+    from calitas_tpu_torch.io.fasta import IndexedFasta
 
     rng = np.random.default_rng(11)
     protos = {GUIDE: GUIDE[:-3], G5: G5[4:]}
@@ -782,7 +811,7 @@ def list_tool_inputs(np, configs, tmp: Path) -> dict:
                 p = int(rng.integers(0, len(t) - len(s)))
                 t = t[:p] + s + t[p + len(s):]
             fh.write(f"{guide}\t{t}\n")
-    ref = configs.build_ref(CONTIG, 3, "c3chr21")
+    ref = goldens.build_ref(tmp, CONTIG, 3, "c3chr21")
     sites = planted_sites(np, CONTIG, 3)
     bases = IndexedFasta(ref).get_bases("chr21")
     hits = sum(
@@ -811,36 +840,47 @@ def list_tool_inputs(np, configs, tmp: Path) -> dict:
     }
 
 
-def list_tools_at_scale(torch, np, dp_cuda, dp_screen, configs, tmp: Path) -> int:
+def list_tools_at_scale(torch, np, dp_cuda, dp_screen, tmp: Path) -> int:
     """Phase 11: 20,000 pairs and 20,000 A2R loci, gpu engine against
     host engine; returns the row kernel's launches in the gpu runs."""
     from calitas_tpu_torch import cli
 
-    runs = list_tool_inputs(np, configs, tmp)
+    runs = list_tool_inputs(np, tmp)
     launches = 0
     for name, argv in runs.items():
-        wall, n, plain = pair_screen_run(
-            torch, cli, dp_cuda, dp_screen,
-            [*argv, "-o", tmp / f"{name}_gpu.txt", "--engine", "gpu"])
-        host_wall = run_cli(torch, cli, [*argv, "-o", tmp / f"{name}_host.txt",
-                                         "--engine", "host"])
+        with PoolWatch() as pool:
+            wall, n, plain = pair_screen_run(
+                torch, cli, dp_cuda, dp_screen,
+                [*argv, "-o", tmp / f"{name}_gpu.txt", "--engine", "gpu"])
+            # Then host, host, gpu: each engine once before and once after
+            # the other.
+            walls = {"gpu": [wall], "host": []}
+            for k, engine in enumerate(("host", "host", "gpu")):
+                walls[engine].append(run_cli(
+                    torch, cli, [*argv, "-o", tmp / f"{name}_{engine}{k}.txt",
+                                 "--engine", engine]))
+        workers = pool.check(name)
         got = norm_rows((tmp / f"{name}_gpu.txt").read_text())
-        assert_same_table(got, norm_rows((tmp / f"{name}_host.txt").read_text()),
-                          f"{name}: gpu and host tables differ")
+        for k, engine in enumerate(("host", "host", "gpu")):
+            assert_same_table(got, norm_rows((tmp / f"{name}_{engine}{k}.txt").read_text()),
+                              f"{name}: gpu and {engine} tables differ")
         log(f"[{name}] 20,000 rows: tables identical on --engine gpu and --engine host "
-            f"({len(got) - 1} rows); gpu {wall:.3f} s, host {host_wall:.3f} s end to end")
+            f"({len(got) - 1} rows); end to end, in run order gpu, host, host, gpu: gpu "
+            + ", ".join(f"{w:.3f}" for w in walls["gpu"]) + " s, host "
+            + ", ".join(f"{w:.3f}" for w in walls["host"])
+            + f" s; finish pool {workers} workers, never broken")
         check_kernel_route(name, n, plain)
         launches += n
     return launches
 
 
-def long_guide(torch, dp_cuda, dp_screen, configs, tmp: Path) -> None:
+def long_guide(torch, dp_cuda, dp_screen, tmp: Path) -> None:
     """Phase 12: a 50-base DP query through SearchReference on config 2's
     2 Mb contig, on the card and with --device cpu."""
-    from calitas_tpu.io.fasta import IndexedFasta
-    from calitas_tpu_torch import cli
+    from calitas_tpu_torch import cli, goldens
+    from calitas_tpu_torch.io.fasta import IndexedFasta
 
-    ref = configs.build_ref(2_000_000, 2, "c2ref")
+    ref = goldens.build_ref(tmp, 2_000_000, 2, "c2ref")
     bases = bytes(IndexedFasta(ref).get_bases("chr21"))
     p = next(p for p in range(500_000, len(bases))
              if bases[p + 51] in b"AG" and bases[p + 52] == ord("G"))
@@ -878,6 +918,158 @@ def long_guide(torch, dp_cuda, dp_screen, configs, tmp: Path) -> None:
         raise AssertionError("the 50-base guide did not run on the plain route alone")
 
 
+def probes_vs_plain(torch, np, dp_cuda, probes, device):
+    """Phase 13, first half: each probe against its plain version, bit
+    for bit, at a small shape and at screen_ab.py's (T 1024, N 32,768,
+    Q 20), with screen_ab.py's column values (masks 1-15 with both PAM
+    bits set); returns (max_abs_err, {name: (kernel ms, plain ms)}) at
+    screen_ab.py's shape."""
+    rng = np.random.default_rng(13)
+    max_err = 0
+    times = {}
+    for T, N, Q, bias in ((16, 2048, 5, -3), (1024, 32_768, 20, 0)):
+        tcols = torch.from_numpy(
+            rng.integers(1, 16, (T, N)).astype(np.int32) | (3 << 4)).to(device)
+        for name in ("ceiling_probe", "peak_probe"):
+            kernel = getattr(probes, name)
+            plain = getattr(probes, name + "_reference")
+            got = kernel(tcols, Q, bias)
+            want = plain(tcols, Q, bias)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            same = torch.equal(got, want)
+            log(f"[probes] {name} T={T} N={N} Q={Q} bias={bias} bit-identical={same} "
+                f"max_abs_err={err}")
+            if not same:
+                raise AssertionError(f"{name} != plain at T={T} N={N} Q={Q}")
+            max_err = max(max_err, err)
+            if N == 32_768:
+                times[name] = (
+                    cuda_time_ms(torch, lambda: kernel(tcols, Q, bias), 20),
+                    cuda_time_ms(torch, lambda: plain(tcols, Q, bias), 1),
+                )
+    log("[probes] T 1024, N 32768, Q 20: " + "; ".join(
+        f"{n} kernel {k:.4f} ms, plain {p:.4f} ms" for n, (k, p) in times.items()))
+    return max_err, times
+
+
+def probe_sass(dp_cuda, Q: int = 20) -> dict:
+    """Phase 13: max instructions (VIMNMX, VIADDMNMX) and IMADs in the
+    SASS of the Q 20 probes (cuobjdump).  Raises when a probe holds fewer
+    maxes than its pairs per column (ceiling Q, peak 8 Q): the compiler
+    would have folded the work the probe is meant to time."""
+    import re
+    import shutil
+    from collections import Counter
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(dp_cuda.build_all(["probes"])["probes"])],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = body.split("\n", 1)[0]
+        for kind, pairs in (("ceiling_kernel", Q), ("peak_kernel", 8 * Q)):
+            if f"{kind}ILi{Q}E" in name:
+                c = Counter(re.findall(r"\b(VIMNMX|VIADDMNMX|IMAD)\b", body))
+                counts[kind] = dict(c)
+                if c["VIMNMX"] + c["VIADDMNMX"] < pairs:
+                    raise AssertionError(f"{kind}<{Q}> SASS holds {dict(c)}: fewer maxes "
+                                         f"than its {pairs} add+max pairs per column")
+    if len(counts) != 2:
+        raise AssertionError(f"probe SASS not found: {sorted(counts)}")
+    log(f"[probes] SASS at Q {Q} (whole kernel; the column loop may be unrolled): {counts}")
+    return counts
+
+
+def roofline_run(dp_cuda, probes, device):
+    """Phase 13, second half: the probes' own path, ``roofline``, with the
+    launch counts set to 0 just before it; returns (its result, the
+    probes' launches in it)."""
+    dp_cuda.reset_launches()
+    roof = probes.roofline(device)
+    launches = {n: dp_cuda.launches[n] for n in ("ceiling_probe", "peak_probe")}
+    log(f"[roofline] int32 peak {roof['peak_int32_ops_per_s']:.6g} op/s "
+        f"({roof['sms']} SMs x {probes.INT32_LANES_PER_SM} lanes x "
+        f"{roof['max_sm_clock_mhz']:g} MHz); peak probe measured "
+        f"{roof['peak_probe_ops_per_s']:.6g} op/s; bounds at "
+        f"{roof['bound_ops_per_s']:.6g} op/s; probe launches {launches}")
+    for what, rows in (("probe", roof["probes"]), ("kernel", roof["kernels"])):
+        for name, r in rows.items():
+            log(f"[roofline] {what} {name}: {r['ms']:.4f} ms, {r['ops_per_s']:.6g} op/s, "
+                f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, share of bound "
+                f"{100 * r['share_of_bound']:.2f} %")
+    if not all(launches.values()):
+        raise AssertionError(f"roofline did not launch every probe: {launches}")
+    return roof, launches
+
+
+def own_processes() -> list:
+    """(pid, state, command line) of every process descended from this
+    one, read from /proc."""
+    parent, info = {}, {}
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            fields = (d / "stat").read_text().rsplit(")", 1)[1].split()
+            cmd = (d / "cmdline").read_bytes().replace(b"\0", b" ").decode(errors="replace")
+        except (OSError, IndexError):
+            continue  # ended while being read
+        parent[int(d.name)] = int(fields[1])
+        info[int(d.name)] = (fields[0], cmd.strip())
+    mine, level = [], {os.getpid()}
+    while level:
+        level = {pid for pid, ppid in parent.items() if ppid in level}
+        mine += sorted(level)
+    return [(pid, *info[pid]) for pid in mine]
+
+
+def stop_processes(host_pool) -> None:
+    """Stops every process the run started and waits for each to end: the
+    finish pool's workers, then the resource tracker that the pool's
+    spawn context started (it would otherwise outlive this process while
+    it cleans up).  Any other descendant is logged, sent SIGTERM, then
+    SIGKILL; raises if one is still there."""
+    import gc
+    import multiprocessing
+    import signal
+    from multiprocessing import resource_tracker
+
+    if host_pool._SHARED_POOL is not None:
+        host_pool._SHARED_POOL.shutdown(wait=True)
+        host_pool._SHARED_POOL = None
+    for proc in multiprocessing.active_children():
+        proc.join(30)
+    gc.collect()  # the pool's semaphores unregister while the tracker runs
+    log(f"[processes] after the finish pool's shutdown: {own_processes()}")
+    stop = getattr(resource_tracker._resource_tracker, "_stop", None)
+    if stop is not None:
+        stop()
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        left = own_processes()
+        if not left:
+            break
+        for pid, _state, _cmd in left:
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        deadline = time.monotonic() + 10
+        while left and time.monotonic() < deadline:
+            for pid, _state, _cmd in left:
+                try:
+                    os.waitpid(pid, os.WNOHANG)  # reaps a child of this process
+                except ChildProcessError:
+                    pass  # not a child of this one: its own parent reaps it
+            time.sleep(0.05)
+            left = own_processes()
+    still = own_processes()
+    log(f"[processes] after stopping the resource tracker and any other "
+        f"descendant: {still}")
+    if still:
+        raise RuntimeError(f"processes of this run outlived it: {still}")
+
+
 def main() -> int:
     import torch
 
@@ -888,11 +1080,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
-    from calitas_tpu import native
-    from calitas_tpu.core.scoring import derive_scorer
+    from calitas_tpu_torch import native
+    from calitas_tpu_torch.core.scoring import derive_scorer
     from calitas_tpu_torch.device import resolve_device
-    from calitas_tpu_torch.ops import dp_cuda, dp_screen
+    from calitas_tpu_torch.ops import dp_cuda, dp_screen, probes
     from calitas_tpu_torch.ops import genome_screen as gs
+    from calitas_tpu_torch.parallel import host_pool
 
     # 1. Device
     device = resolve_device("cuda")
@@ -907,98 +1100,121 @@ def main() -> int:
         dp_cuda.library(name)
     log(f"[build] {', '.join(str(p.relative_to(ROOT)) for p in dp_cuda.SOURCES.values())} "
         f"built and loaded in {time.perf_counter() - t0:.3f} s")
+    for name, lib in dp_cuda.build_all(tuple(dp_cuda.SOURCES)).items():
+        log(f"[build] ptxas, {name}: {ptxas_summary(lib.with_name(lib.name + '.log'))}")
 
     phase_s = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        configs = load_configs(tmp)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
 
-        # 3. Kernel vs plain, on the card
-        t0 = time.perf_counter()
-        scorer = derive_scorer()
-        max_err, kernel_ms, plain_ms, genome = kernel_vs_plain(
-            torch, np, dp_cuda, dp_screen, gs, scorer, device
-        )
-        phase_s["3 dual vs plain"] = time.perf_counter() - t0
+            # 3. Kernel vs plain, on the card
+            t0 = time.perf_counter()
+            scorer = derive_scorer()
+            max_err, kernel_ms, plain_ms, genome, dual_n = kernel_vs_plain(
+                torch, np, dp_cuda, dp_screen, gs, scorer, device
+            )
+            phase_s["3 dual vs plain"] = time.perf_counter() - t0
 
-        # 4. Main path at chr21 scale
-        t0 = time.perf_counter()
-        dual_launches = main_path(
-            torch, dp_cuda, dp_screen, gs, scorer, device, configs, tmp
-        )
-        phase_s["4 config3"] = time.perf_counter() - t0
+            # 4. Main path at chr21 scale
+            t0 = time.perf_counter()
+            dual_launches = main_path(torch, dp_cuda, dp_screen, gs, scorer, device, tmp)
+            phase_s["4 config3"] = time.perf_counter() - t0
 
-        # 5. Multi-guide kernel vs plain, on the card
-        t0 = time.perf_counter()
-        screen = gs.GenomeScreen(scorer, device, window=1000)
-        multi_err, multi_ms, multi_plain_ms = multi_vs_plain(
-            torch, np, dp_cuda, dp_screen, gs, scorer, genome, screen
-        )
-        del genome
-        phase_s["5 multi vs plain"] = time.perf_counter() - t0
+            # 5. Multi-guide kernel vs plain, on the card
+            t0 = time.perf_counter()
+            screen = gs.GenomeScreen(scorer, device, window=1000)
+            multi_err, multi_ms, multi_plain_ms = multi_vs_plain(
+                torch, np, dp_cuda, dp_screen, gs, scorer, genome, screen
+            )
+            del genome
+            phase_s["5 multi vs plain"] = time.perf_counter() - t0
 
-        # 6-8. The multi-guide kernel's paths
-        t0 = time.perf_counter()
-        multi_launches = config5s(
-            torch, np, dp_cuda, dp_screen, gs, scorer, device, configs, tmp
-        )
-        phase_s["6 config5s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        multi_launches += config4(torch, np, dp_cuda, dp_screen, configs, tmp)
-        phase_s["7 config4"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        variants_at_scale(torch, np, dp_cuda, configs, tmp)
-        phase_s["8 variants at scale"] = time.perf_counter() - t0
+            # 6-8. The multi-guide kernel's paths
+            t0 = time.perf_counter()
+            multi_launches = config5s(torch, np, dp_cuda, dp_screen, gs, scorer, device, tmp)
+            phase_s["6 config5s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            multi_launches += config4(torch, dp_cuda, dp_screen, tmp)
+            phase_s["7 config4"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            variants_at_scale(torch, np, dp_cuda, tmp)
+            phase_s["8 variants at scale"] = time.perf_counter() - t0
 
-        # 9-12. The row kernel and its paths, and the long-guide route
-        t0 = time.perf_counter()
-        rows_err, rows_ms = rows_vs_plain(torch, np, dp_cuda, dp_screen, scorer, device)
-        phase_s["9 rows vs plain"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        rows_launches = goldens_1_2(torch, dp_cuda, dp_screen, configs)
-        phase_s["10 configs 1-2"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        rows_launches += list_tools_at_scale(torch, np, dp_cuda, dp_screen, configs, tmp)
-        phase_s["11 list tools at scale"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        long_guide(torch, dp_cuda, dp_screen, configs, tmp)
-        phase_s["12 long guide"] = time.perf_counter() - t0
+            # 9-12. The row kernel and its paths, and the long-guide route
+            t0 = time.perf_counter()
+            rows_err, rows_ms, rows_lens = rows_vs_plain(
+                torch, np, dp_cuda, dp_screen, scorer, device)
+            phase_s["9 rows vs plain"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rows_launches = goldens_1_2(torch, dp_cuda, dp_screen, tmp)
+            phase_s["10 configs 1-2"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rows_launches += list_tools_at_scale(torch, np, dp_cuda, dp_screen, tmp)
+            phase_s["11 list tools at scale"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            long_guide(torch, dp_cuda, dp_screen, tmp)
+            phase_s["12 long guide"] = time.perf_counter() - t0
 
-    from calitas_tpu.parallel import host_pool
+            # 13. The roofline probes and every kernel's bound
+            t0 = time.perf_counter()
+            probe_sass(dp_cuda)
+            probe_err, probe_ms = probes_vs_plain(torch, np, dp_cuda, probes, device)
+            roof, probe_launches = roofline_run(dp_cuda, probes, device)
+            phase_s["13 probes and roofline"] = time.perf_counter() - t0
+    finally:
+        stop_processes(host_pool)
 
-    if host_pool._SHARED_POOL is not None:  # stop the finish workers
-        host_pool._SHARED_POOL.shutdown(wait=True)
+    # Each timed call's bound, from its own inputs.
+    peak = roof["bound_ops_per_s"]
+    T, N, Q = 1024, 32_768, 20
+    work = {
+        "screen_dual": probes.grid_work(CONTIG, 0, DEFAULT_STEP, dual_n, 1000, 20),
+        "screen_multi": probes.grid_work(CONTIG, 0, DEFAULT_STEP, dual_n, 1000, 20,
+                                         guides=4),
+        # the list tools' mode: a query per row, both chains, ranges on
+        "screen_rows": probes.rows_work(rows_lens["per-row"], 20, 2, True, True),
+        "ceiling_probe": probes.probe_work("ceiling_probe", T, N, Q),
+        "peak_probe": probes.probe_work("peak_probe", T, N, Q),
+    }
+    timed = {
+        "screen_dual": (kernel_ms, plain_ms),
+        "screen_multi": (multi_ms[4], multi_plain_ms),
+        "screen_rows": rows_ms["per-row"],
+        **probe_ms,
+    }
+    bounds = {name: probes.bound_ms(ops, nbytes, peak) for name, (ops, nbytes) in work.items()}
+    for name, (b_ms, b_by) in bounds.items():
+        log(f"[bounds] {name}: {timed[name][0]:.4f} ms against a bound of {b_ms:.4f} ms "
+            f"({b_by}): {100 * b_ms / timed[name][0]:.2f} % of the bound")
 
     log("[phases] " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
     log(smi)
+    rows = [
+        ("screen_dual", "screen_dual.cu", "calitas_tpu/ops/dp_pallas2.py:221",
+         dual_launches, max_err),
+        ("screen_multi", "screen_multi.cu", "calitas_tpu/ops/dp_pallas2.py:431",
+         multi_launches, multi_err),
+        ("screen_rows", "screen_rows.cu", "calitas_tpu/ops/dp_pallas2.py:42",
+         rows_launches, rows_err),
+        ("ceiling_probe", "probes.cu", "benchmarks/screen_ab.py:73",
+         probe_launches["ceiling_probe"], probe_err),
+        ("peak_probe", "probes.cu", "benchmarks/screen_ab.py:97",
+         probe_launches["peak_probe"], probe_err),
+    ]
     print(json.dumps({"kernels": [{
-        "name": "screen_dual",
+        "name": name,
         "route": "cuda",
-        "source": "calitas_tpu_torch/csrc/screen_dual.cu",
-        "replaces": "calitas_tpu/ops/dp_pallas2.py:221",
-        "launches": dual_launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "screen_multi",
-        "route": "cuda",
-        "source": "calitas_tpu_torch/csrc/screen_multi.cu",
-        "replaces": "calitas_tpu/ops/dp_pallas2.py:431",
-        "launches": multi_launches,
-        "max_abs_err": multi_err,
-        "ms": multi_ms[4],
-        "plain_ms": multi_plain_ms,
-    }, {
-        "name": "screen_rows",
-        "route": "cuda",
-        "source": "calitas_tpu_torch/csrc/screen_rows.cu",
-        "replaces": "calitas_tpu/ops/dp_pallas2.py:42",
-        "launches": rows_launches,
-        "max_abs_err": rows_err,
-        "ms": rows_ms["shared"][0],
-        "plain_ms": rows_ms["shared"][1],
-    }]}))
+        "source": f"calitas_tpu_torch/csrc/{source}",
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": timed[name][0],
+        "plain_ms": timed[name][1],
+        "bound_ms": bounds[name][0],
+        "bound_by": bounds[name][1],
+        "library_ms": None,  # no single PyTorch call computes a DP screen or probe
+    } for name, source, replaces, launches, err in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
-"""The port runs where jax is not installed: in a fresh interpreter that
-cannot import jax, import the port and its CLI and run small searches
+"""The port stands alone: in a fresh interpreter that can import neither
+jax nor the JAX package, import the port and its CLI and run small searches
 (gpu engine on the CPU): one guide, then a guide file of two same-length
 guides with a VCF, which runs the fused multi-guide screen and the
 variant pass; then PairwiseAlignSequences and AlignToReference (best and
 all-hits modes), once with the native finish and once without it, so the
 host workers' per-item fallback runs and must still give the host
-engine's table.  No jax module may ever be loaded."""
+engine's table.  No jax module and no module of the JAX package may ever
+be loaded."""
 
 import subprocess
 import sys
@@ -18,10 +19,11 @@ SCRIPT = textwrap.dedent(
     r"""
     import sys
     sys.modules["jax"] = None  # any `import jax` now raises ImportError
+    sys.modules["calitas_tpu"] = None  # and so does the JAX package
     import numpy as np
     import calitas_tpu_torch
     from calitas_tpu_torch import cli
-    from calitas_tpu.io.fasta import ReferenceSetBuilder
+    from calitas_tpu_torch.io.fasta import ReferenceSetBuilder
 
     tmp = sys.argv[1]
     rng = np.random.default_rng(0)
@@ -81,8 +83,8 @@ SCRIPT = textwrap.dedent(
         ts = hdr.index("time_stamp") if "time_stamp" in hdr else None
         return [[f for i, f in enumerate(r.split("\t")) if i != ts] for r in rows]
 
-    from calitas_tpu import native
-    from calitas_tpu.align.engine import SequentialAligner
+    from calitas_tpu_torch import native
+    from calitas_tpu_torch.align.engine import SequentialAligner
 
     host = {n: table(n, "host", "--engine", "host") for n in runs}
     assert all(len(t) > 1 for t in host.values()), host
@@ -105,8 +107,9 @@ SCRIPT = textwrap.dedent(
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "jaxlib")))
     assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
-    assert not any(m.startswith("calitas_tpu.ops") for m in sys.modules)
-    assert "calitas_tpu.parallel.screen_runner" not in sys.modules
+    jax_package = sorted(m for m in sys.modules
+                         if m == "calitas_tpu" or m.startswith("calitas_tpu."))
+    assert jax_package == ["calitas_tpu"] and sys.modules["calitas_tpu"] is None
     assert "calitas_tpu_torch.ops.pair_screen" in sys.modules
     print("OK", len(rows) - 1, len(vrows) - 1)
     """

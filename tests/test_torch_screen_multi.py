@@ -171,8 +171,8 @@ def test_launch_counter_is_thread_safe():
 
         threads = [
             threading.Thread(target=count, args=(name,))
-            for name in ["screen_multi"] * 4 + ["screen_dual"] * 2
-            + ["screen_rows"] * 2
+            for name in ["screen_multi"] * 3 + ["screen_dual"] * 2
+            + ["screen_rows", "ceiling_probe", "peak_probe"]
         ]
         for t in threads:
             t.start()
@@ -180,8 +180,9 @@ def test_launch_counter_is_thread_safe():
             t.join(timeout=120)
         assert not any(t.is_alive() for t in threads)
         assert dp_cuda.launches == {
-            "screen_multi": 4 * per_thread, "screen_dual": 2 * per_thread,
-            "screen_rows": 2 * per_thread,
+            "screen_multi": 3 * per_thread, "screen_dual": 2 * per_thread,
+            "screen_rows": per_thread, "ceiling_probe": per_thread,
+            "peak_probe": per_thread,
         }
     finally:
         sys.setswitchinterval(interval)

@@ -123,7 +123,7 @@ def test_pairwise_gpu_engine_equals_host_with_competitive_rev(tmp_path):
 
 
 def test_auto_rule_of_the_list_tools(monkeypatch):
-    from calitas_tpu import native
+    from calitas_tpu_torch import native
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(native, "available", lambda: False)

@@ -16,6 +16,10 @@ from calitas_tpu.io.vcf import VcfIndex
 from calitas_tpu.search.variants import variant_window_iterator
 from calitas_tpu.tools import search_reference as jax_sr
 from calitas_tpu_torch import cli
+from calitas_tpu_torch.align.engine import SequentialAligner as PortAligner
+from calitas_tpu_torch.core.guide import Guide as PortGuide
+from calitas_tpu_torch.io.fasta import IndexedFasta as PortFasta
+from calitas_tpu_torch.io.vcf import VcfIndex as PortVcfIndex
 from calitas_tpu_torch.ops import dp_screen as port_dp
 from calitas_tpu_torch.search import variants as port_variants
 from calitas_tpu_torch.tools import search_reference as port_sr
@@ -108,24 +112,30 @@ def test_screened_windows_cover_every_hit_window(tmp_path):
     flagged by the slot screen, for each guide; with a slot narrower than
     some windows, those pass through flagged for every guide."""
     protos, ref, vcf = _reference_and_vcf(tmp_path, 10, n=30_000, n_variants=200)
-    fasta = IndexedFasta(ref)
-    index = VcfIndex(vcf)
+    # The port screens its own window blocks; the JAX package's windows
+    # and exact aligner are the oracle.
+    port_aligner = PortAligner()
+    port_guides = [PortGuide.parse(p + "nrg") for p in protos]
+    padding = max(g.length for g in port_guides) - 1 + 5 + 3
+    port_specs = [(f"g{i}", g, port_aligner.min_guide_score(g, 5))
+                  for i, g in enumerate(port_guides)]
     aligner = SequentialAligner()
-    guides = [Guide.parse(p + "nrg") for p in protos]
-    padding = max(g.length for g in guides) - 1 + 5 + 3
-    specs = [(f"g{i}", g, aligner.min_guide_score(g, 5)) for i, g in enumerate(guides)]
+    specs = [(f"g{i}", Guide.parse(p + "nrg"), ms)
+             for i, (p, (_k, _g, ms)) in enumerate(zip(protos, port_specs))]
 
-    def windows(blocks):
-        return variant_window_iterator(fasta, index, None, padding, 16, blocks=blocks)
+    def port_windows():
+        return port_variants.variant_window_iterator(
+            PortFasta(ref), PortVcfIndex(vcf), None, padding, 16, blocks=True)
 
     flagged = {
         (w.start, w.bases.tobytes()): keys
         for w, keys in port_variants.screened_variant_windows_multi(
-            windows(True), aligner, specs, device="cpu", slot=96,
+            port_windows(), port_aligner, port_specs, device="cpu", slot=96,
             batch_slots=256,
         )
     }
-    all_windows = list(windows(False))
+    all_windows = list(variant_window_iterator(
+        IndexedFasta(ref), VcfIndex(vcf), None, padding, 16, blocks=False))
     assert len(all_windows) > 256  # several batches
     assert any(len(w.bases) > 96 for w in all_windows)
     n_hits = 0
@@ -144,7 +154,8 @@ def test_screened_windows_cover_every_hit_window(tmp_path):
                 assert gid in flagged.get(key, ())
     assert n_hits > 0
     single = list(port_variants.screened_variant_windows(
-        windows(True), aligner, guides[0], specs[0][2], device="cpu", slot=96))
+        port_windows(), port_aligner, port_guides[0], port_specs[0][2],
+        device="cpu", slot=96))
     assert {(w.start, w.bases.tobytes()) for w in single} == {
         k for k, keys in flagged.items() if "g0" in keys
     }
