@@ -48,6 +48,8 @@ logger = logging.getLogger("calitas_tpu_torch.screen")
 Q_MAX = 48
 #: most guides one screen_multi launch takes (the grid's y extent)
 G_MAX = 65535
+#: lanes per window the dual kernel is built for (csrc/screen_dual.cu)
+DUAL_LANES = (1, 2)
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {
@@ -142,13 +144,18 @@ def build_all(names) -> dict:
 def _bind(lib: ctypes.CDLL, name: str) -> None:
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     if name == "screen_dual":
-        lib.calitas_screen_dual.argtypes = [
+        dual = [
             vp, ll, ll, ll, i32, i32,  # genome, len, base0, step, window, n
             ctypes.POINTER(i32), i32,  # qvals, q_len
             i32, i32, i32, i32, i32, i32,  # scores, min_score, pam_gate
             vp, vp, vp,  # best, ranges, stream
         ]
-        lib.calitas_screen_dual.restype = i32
+        lib.calitas_screen_dual.argtypes = dual
+        lib.calitas_screen_dual_lanes.argtypes = [*dual, i32]  # lanes
+        lib.calitas_screen_dual_default_lanes.argtypes = [i32]
+        for fn in (lib.calitas_screen_dual, lib.calitas_screen_dual_lanes,
+                   lib.calitas_screen_dual_default_lanes):
+            fn.restype = i32
     elif name == "screen_rows":
         lib.calitas_screen_rows.argtypes = [
             vp, ll, i32, i32, vp,  # tmasks, ld, T, n_rows, lengths
@@ -270,36 +277,64 @@ def screen_dual(
     annotated genome: returns ``best`` [2, n_windows] and ``ranges``
     [2, 2, n_windows] int32 (contract: :func:`screen_dual_reference`).
 
-    CUDA tensors launch the kernel on the current stream; CPU tensors run
-    the plain version.  Q > 48 on CUDA raises NotImplementedError."""
-    qvals = np.asarray(qvals)
-    _check_grid(genome, base0, step, n_windows, window)
-    if qvals.ndim != 2 or qvals.shape[0] != 2 or qvals.shape[1] < 1:
-        raise ValueError(f"qvals must be [2, Q] with Q >= 1, got {qvals.shape}")
-    _check_masks(qvals)
-    kw = dict(
+    CUDA tensors launch the kernel on the current stream, with the lanes
+    per window the kernel's table gives the query length
+    (:func:`screen_dual_default_lanes`); CPU tensors run the plain
+    version.  Q > 48 on CUDA raises NotImplementedError."""
+    return _screen_dual(genome, qvals, None, dict(
         base0=base0, step=step, n_windows=n_windows, window=window,
         min_score=min_score, match=match, mismatch=mismatch, qgap=qgap,
         tgap=tgap, pam_gate=pam_gate,
-    )
+    ))
+
+
+def _screen_dual_lanes(genome: torch.Tensor, qvals: np.ndarray, *, lanes: int, **kw):
+    """:func:`screen_dual` with ``lanes`` lanes per window (one of
+    :data:`DUAL_LANES`, at most Q) instead of the table's choice, for
+    timing and checking each lane count of the kernel.  Counts as a
+    ``screen_dual`` launch.  CPU tensors run the plain version."""
+    Q = np.asarray(qvals).shape[-1]
+    if lanes not in DUAL_LANES or lanes > Q:
+        raise ValueError(f"lanes must be one of {DUAL_LANES} and at most Q={Q}, got {lanes}")
+    return _screen_dual(genome, qvals, lanes, kw)
+
+
+def screen_dual_default_lanes(q_len: int) -> int:
+    """The lanes per window :func:`screen_dual` launches a ``q_len``-base
+    query with (the kernel's compile-time table); builds the kernels."""
+    _check_q_len(q_len, "dual")
+    return library("screen_dual").calitas_screen_dual_default_lanes(q_len)
+
+
+def _screen_dual(genome, qvals, lanes, kw):
+    qvals = np.asarray(qvals)
+    _check_grid(genome, kw["base0"], kw["step"], kw["n_windows"], kw["window"])
+    if qvals.ndim != 2 or qvals.shape[0] != 2 or qvals.shape[1] < 1:
+        raise ValueError(f"qvals must be [2, Q] with Q >= 1, got {qvals.shape}")
+    _check_masks(qvals)
     if genome.device.type == "cpu":
         return screen_dual_reference(genome, qvals, **kw)
     Q = qvals.shape[1]
     _check_q_len(Q, "dual")
     dev = genome.device
+    n_windows = kw["n_windows"]
     best = torch.empty((2, n_windows), dtype=torch.int32, device=dev)
     ranges = torch.empty((2, 2, n_windows), dtype=torch.int32, device=dev)
     if n_windows == 0:
         return best, ranges
     lib = library("screen_dual")
     q = (ctypes.c_int * (2 * Q))(*(int(v) for v in qvals.reshape(-1)))
+    args = (
+        genome.data_ptr(), genome.numel(), kw["base0"], kw["step"], kw["window"],
+        n_windows, q, Q, kw["match"], kw["mismatch"], kw["qgap"], kw["tgap"],
+        kw["min_score"], int(bool(kw["pam_gate"])), best.data_ptr(),
+        ranges.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
     with torch.cuda.device(dev):
-        err = lib.calitas_screen_dual(
-            genome.data_ptr(), genome.numel(), base0, step, window, n_windows,
-            q, Q, match, mismatch, qgap, tgap, min_score, int(bool(pam_gate)),
-            best.data_ptr(), ranges.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        if lanes is None:
+            err = lib.calitas_screen_dual(*args)
+        else:
+            err = lib.calitas_screen_dual_lanes(*args, lanes)
     _raise_on(lib, err, "screen_dual")
     _count_launch("screen_dual")
     return best, ranges

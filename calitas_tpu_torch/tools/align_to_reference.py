@@ -12,9 +12,12 @@ batch.  Engines:
     all-hits mode the screen's verdict reaches the finish: the strand
     passes that can hold a qualifying alignment, and each chain's
     qualifying end-column range for the native sliced finish.  In best
-    mode the finish takes nothing from it: its batched native path runs
-    both passes outright, so the port hands the per-item fallback no
-    pass-bounds dict either.  The table is identical either way.
+    mode the batched native path runs both passes outright and reads
+    nothing of it; without the native library each locus carries a
+    pass-DP-bounds dict (``pass_bounds_for``) to the per-item fallback,
+    which skips the rev pass where the bound shows it cannot win
+    (``align.engine.align_to_ref_best``).  The table is identical either
+    way.
   - ``auto``: the list tools' rule of ``device.resolve_engine``.
 A device error propagates; nothing degrades to the host behind the
 caller's back.
@@ -189,8 +192,12 @@ def run(
         strand passes with a qualifying end column (skipping the others
         is exact, per ``align()``'s passes contract) and the screen
         coordinates (loA, hiA, loB, hiB) of the qualifying end columns
-        for the worker's sliced native finish; best mode tasks stay as
-        they are.  The window math is ``engine.align_to_ref``'s."""
+        for the worker's sliced native finish; in best mode, when the
+        native library is missing, each task gains its pass-DP-bounds dict
+        for the per-item fallback (the batched native finish reads none).
+        Unparsable tasks gain None.  The window math is
+        ``engine.align_to_ref``'s."""
+        from calitas_tpu_torch import native
         from calitas_tpu_torch.ops.pair_screen import pass_bounds_for
 
         guides, targets, min_scores = [], [], []
@@ -219,14 +226,17 @@ def run(
             [dp_query(g) for g in guides], targets,
             min_scores if all_hits else None,
         )
-        if not all_hits:
+        if not all_hits and native.available():
             return batch
         out = []
         for k, (task, g, a, b_) in enumerate(zip(batch, guides, chain_a, chain_b)):
             if g is None:
-                out.append(task)
+                out.append((*task, None))
                 continue
             bounds = pass_bounds_for(g, int(a), int(b_))
+            if not all_hits:
+                out.append((*task, bounds))
+                continue
             passes = tuple(
                 p for p in ("fwd", "rev")
                 if bounds[p] == PairScreen.NO_SCREEN or bounds[p] >= min_scores[k]

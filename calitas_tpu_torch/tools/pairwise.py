@@ -8,10 +8,12 @@ aln.startOffset.  Engines:
   - ``gpu``: the pair screen (``ops/pair_screen.py``: the CUDA row screen
     in per-row-query mode, or its plain version with ``device="cpu"``)
     computes both chains' exact DP maxima for every pair before the same
-    host finish.  The finish does not read them: its batched native path
-    runs both strand passes outright (``parallel/host_pool.py::
-    _mp_pairwise_chunk``), so the port hands the per-pair fallback no
-    pass-bounds dict either.  The table is identical either way.
+    host finish.  The batched native path runs both strand passes
+    outright (``parallel/host_pool.py::_mp_pairwise_chunk``) and reads
+    nothing of them; without the native library each pair carries them to
+    the per-pair fallback as a pass-DP-bounds dict (``pass_bounds_for``),
+    which skips the rev pass where the bound shows it cannot win
+    (``align.engine.align_best``).  The table is identical either way.
   - ``auto``: the list tools' rule of ``device.resolve_engine``.
 A device error propagates; nothing degrades to the host behind the
 caller's back.
@@ -90,17 +92,23 @@ def run(
         engine, device, n_tasks=len(tasks), prefer_host_when_native=True
     )
     if screen_device is not None:
-        from calitas_tpu_torch.ops.pair_screen import PairScreen
+        from calitas_tpu_torch import native
+        from calitas_tpu_torch.ops.pair_screen import PairScreen, pass_bounds_for
 
-        chain_a, _chain_b = PairScreen(aligner.scorer, screen_device).chain_maxima(
-            [dp_query(parse_or_none(q)) for q, _t in tasks],
-            [t for _q, t in tasks],
+        guides = [parse_or_none(q) for q, _t in tasks]
+        chain_a, chain_b = PairScreen(aligner.scorer, screen_device).chain_maxima(
+            [dp_query(g) for g in guides], [t for _q, t in tasks],
         )
         logger.info(
             "Pair screen: %d of %d pairs screened on %s.",
             int((chain_a != PairScreen.NO_SCREEN).sum()), len(tasks),
             screen_device,
         )
+        if not native.available():  # only the per-pair fallback reads them
+            tasks = [
+                (q, t, pass_bounds_for(g, int(a), int(b)) if g is not None else None)
+                for (q, t), g, a, b in zip(tasks, guides, chain_a, chain_b)
+            ]
 
     from calitas_tpu_torch.parallel.host_pool import _mp_pairwise_chunk, map_items_mp
 
@@ -118,7 +126,7 @@ def run(
 
     out = open_output(output)
     out.write("\t".join(COLUMNS) + "\n")
-    for (query, target), aln in map_items_mp(
+    for (query, target, *_bounds), aln in map_items_mp(
         tasks, spec, threads,
         worker_fn=_mp_pairwise_chunk, to_payload=lambda t: t, logger=logger,
     ):

@@ -174,6 +174,18 @@ def run(
         )
         return window_size - window_overlap
 
+    if screen_device is not None and window_size > 2048:
+        from calitas_tpu_torch.ops.genome_screen import range_block
+
+        # Ranges stay on at any width but get coarser (range_block
+        # doubles past 2048 columns): each candidate's DP slice widens
+        # by up to a block per side.  Worth a note, not a warning.
+        logger.info(
+            "--window-size %d > 2048: end-column ranges use coarser "
+            "%d-column blocks (slightly wider finish DP slices).",
+            window_size, range_block(window_size),
+        )
+
     # Parse and index the VCF once per run (SearchReference.scala:227-231).
     vcf_index = None
     if variants is not None:

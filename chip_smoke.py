@@ -10,12 +10,20 @@ Phases, each raising on failure:
    limit and whether the port's native host finish library loaded.
 2. Build: compiles the CUDA kernels from ``calitas_tpu_torch/csrc`` (the
    three screens and the roofline probes), one nvcc per source, started
-   together.
+   together, and prints the build time; every ``screen_dual`` instantiation
+   (Q 1-48 x lanes 1/2, L <= Q) must be there and none may spill.
 3. Kernel vs plain: on a seeded 40 Mb annotated genome with planted guide
    sites, the kernel's best scores and end-column ranges must equal its
    plain PyTorch version bit for bit (query lengths 20/24/48, PAM gate on
    and off, windows 40/64/1000/1003/2500); times both at the main path's
    shape (window 1000, 20-base guide, one segment of the 40 Mb contig).
+   Then each lane count L of the dual kernel (``_screen_dual_lanes``)
+   against the plain version at Q 1/2/21/23/47/48 on grids of 4,099
+   windows whose last ones run past the genome's end, each L timed at
+   config3's shape and at one 1 Gb segment's (64,512 windows over a 64 Mb
+   genome) with its registers and spills, and at both shapes at every Q
+   from 2 to 48 (the launcher's L must be the fastest over the two, within
+   3 %); the SASS instruction counts of ``screen_dual_kernel<20, L>``.
 4. Main path: golden config 3 (a 40 Mb synthetic chr21-scale contig with
    40 planted sites) through the port's
    CLI with ``--engine gpu``; the table must equal
@@ -135,6 +143,61 @@ def ptxas_summary(path: Path) -> str:
             + (f"; Q 20/48: {probes}" if any(probes.values()) else ""))
 
 
+def dual_ptxas(path: Path) -> dict:
+    """``{(Q, lanes): (registers, spill bytes)}`` of every
+    ``screen_dual_kernel`` instantiation, from ptxas's ``-v`` report."""
+    import re
+
+    out = {}
+    for entry in path.read_text().split("Compiling entry function")[1:]:
+        m = re.search(r"screen_dual_kernelILi(\d+)ELi(\d+)EE", entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        if not m or not regs:
+            continue
+        spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", entry))
+        out[int(m[1]), int(m[2])] = (int(regs[1]), spill)
+    return out
+
+
+def dual_sass(dp_cuda, Q: int = 20) -> dict:
+    """Instruction counts of ``screen_dual_kernel<Q, L>`` for each L, from
+    its SASS (cuobjdump): the whole kernel, and its steady loop (the
+    backward branch whose body holds the most DPX add+max, VIADDMNMX)
+    with that loop's instructions per DP cell and chain (each cell of a
+    chain runs two VIADDMNMX)."""
+    import re
+    import shutil
+    from collections import Counter
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = dp_cuda.build_all(["screen_dual"])["screen_dual"]
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        m = re.match(rf".*screen_dual_kernelILi{Q}ELi(\d+)EE", body.split("\n", 1)[0])
+        if not m:
+            continue
+        ins = [(int(a, 16), op.split(".")[0], rest) for a, op, rest in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", body)]
+        ins = [x for x in ins if x[1] != "NOP"]
+        loop = []
+        for addr, op, rest in ins:
+            target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+            if target and int(target[1], 16) < addr:
+                body_ops = [o for a, o, _r in ins if int(target[1], 16) <= a <= addr]
+                if body_ops.count("VIADDMNMX") > loop.count("VIADDMNMX"):
+                    loop = body_ops
+        ops = Counter(loop)
+        out[int(m[1])] = {"total": len(ins), "loop": len(loop),
+                          "loop_VIADDMNMX": ops["VIADDMNMX"],
+                          "per_cell_chain": 2 * len(loop) / max(ops["VIADDMNMX"], 1),
+                          "loop_top": dict(ops.most_common(8))}
+    if not out:
+        raise AssertionError(f"screen_dual_kernel<{Q}, L> not found in the SASS")
+    return out
+
+
 def synthetic_genome(np, n: int, seed: int, protos: list) -> "np.ndarray":
     """Random ACGT bytes with mutated copies of each protospacer (plus a
     PAM, on either strand) planted throughout."""
@@ -165,8 +228,8 @@ def cuda_time_ms(torch, fn, reps: int) -> float:
 
 
 def kernel_vs_plain(torch, np, dp_cuda, dp_screen, gs, scorer, device):
-    """Phase 3: returns (max_abs_err over all cases, kernel ms, plain ms,
-    the annotated genome, the timed call's window count)."""
+    """Phase 3, first half: returns (max_abs_err over all cases, kernel
+    ms, plain ms, the annotated genome, the timed call's (qvals, kwargs))."""
     rng = np.random.default_rng(11)
     protos = {
         20: GUIDE[:20],
@@ -229,9 +292,90 @@ def kernel_vs_plain(torch, np, dp_cuda, dp_screen, gs, scorer, device):
         torch, lambda: dp_screen.screen_dual_reference(genome, qvals, **kw), 3
     )
     log(f"[kernel] main-path shape (window 1000, Q 20, gate on, one segment of "
-        f"{kw['n_windows']} windows of the 40 Mb contig): kernel {kernel_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms")
-    return max_err, kernel_ms, plain_ms, genome, kw["n_windows"]
+        f"{kw['n_windows']} windows of the 40 Mb contig): kernel {kernel_ms:.4f} ms "
+        f"(L={dp_cuda.screen_dual_default_lanes(20)}), plain {plain_ms:.4f} ms")
+    return max_err, kernel_ms, plain_ms, genome, (qvals, kw)
+
+
+LANE_CASES = (  # (Q, window, gate): every L <= Q of each against the plain version
+    (1, 2500, True), (2, 40, False), (21, 1000, True), (23, 1003, False),
+    (47, 64, True), (48, 2500, False),
+)
+LANE_WINDOWS = 4099  # not a multiple of any block's window count
+LANE_NOISE = 1.03  # the launcher's L may be this much slower than the fastest
+
+
+def dual_lanes(torch, np, dp_cuda, dp_screen, gs, scorer, genome, main_kw, regs):
+    """Phase 3, second half: each lane count of the dual kernel against
+    the plain version on the edge cases, each L timed at config3's shape
+    and at one 1 Gb segment's (Q 20), and at both at every Q from 2 to 48;
+    fails when the launcher's L is not the fastest (least sum over the two
+    shapes, within ``LANE_NOISE``) at some Q."""
+    rng = np.random.default_rng(31)
+    sk = dict(match=scorer.match_score, mismatch=scorer.mismatch_score,
+              qgap=scorer.query_gap_score, tgap=scorer.target_gap_score)
+    n = LANE_WINDOWS
+    for Q, window, gate in LANE_CASES:
+        step = window - (Q + 3 + 5 + 3 - 1)
+        # The last three windows start at or past the end of the staged
+        # genome, the ones before run past it.
+        kw = dict(base0=genome.numel() - (n - 3) * step, step=step, n_windows=n,
+                  window=window, min_score=0, pam_gate=gate, **sk)
+        qvals = rng.integers(1, 16, (2, Q)).astype(np.int32)
+        best0, _ = dp_screen.screen_dual_reference(genome, qvals, **kw)
+        kw["min_score"] = int(best0.float().median())
+        want = dp_screen.screen_dual_reference(genome, qvals, **kw)
+        for L in (lanes for lanes in dp_cuda.DUAL_LANES if lanes <= Q):
+            got = dp_cuda._screen_dual_lanes(genome, qvals, lanes=L, **kw)
+            torch.cuda.synchronize()
+            same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            log(f"[lanes] Q={Q} L={L} window={window} step={step} gate={gate} "
+                f"windows={n} (last 3 past the end) bit-identical={same}")
+            if not same:
+                raise AssertionError(f"dual kernel L={L} != plain at Q={Q} window={window}")
+
+    # One 1 Gb segment: 64,512 windows over a 64 Mb genome made here.
+    big = gs.annotate_genome_pam(
+        gs.GenomeScreen(scorer, genome.device, window=1000).stage(
+            synthetic_genome(np, 64_000_000, 8, [GUIDE[:20]])),
+        gs.encode_pam_spec((("nrg",), 1, 3)),
+    )
+    qvals, kw = main_kw
+    for shape, g, skw in (("config3", genome, kw),
+                          ("1 Gb segment", big, dict(kw, n_windows=64_512))):
+        for L in dp_cuda.DUAL_LANES:
+            ms = cuda_time_ms(torch, lambda: dp_cuda._screen_dual_lanes(
+                g, qvals, lanes=L, **skw), 20)
+            r, sp = regs[20, L]
+            log(f"[lanes] {shape} ({skw['n_windows']} windows of 1000, Q 20, gate on) "
+                f"L={L}: {ms:.4f} ms, {r} registers, {sp} spill bytes")
+    # At every Q: each L's time at both shapes; the fastest L has the
+    # least sum.
+    wrong = {}
+    for Q in range(2, dp_cuda.Q_MAX + 1):
+        qv = rng.choice(np.array([1, 2, 4, 8], np.int32), (2, Q))
+        step = 1000 - (Q + 3 + 5 + 3 - 1)
+        bkw = dict(kw, step=step, min_score=scorer.match_score * Q - 5 * 122)
+        ms = {}
+        for _trial in range(3):  # the least of three: one clock dip decides nothing
+            for shape, g, n in (("config3", genome, (CONTIG - 2) // step + 1),
+                                ("1 Gb segment", big, 64_512)):
+                for L in dp_cuda.DUAL_LANES:
+                    t = cuda_time_ms(torch, lambda: dp_cuda._screen_dual_lanes(
+                        g, qv, lanes=L, **dict(bkw, n_windows=n)), 10)
+                    ms[shape, L] = min(ms.get((shape, L), t), t)
+        sums = {L: ms["config3", L] + ms["1 Gb segment", L] for L in dp_cuda.DUAL_LANES}
+        fastest = min(sums, key=sums.get)
+        launcher = dp_cuda.screen_dual_default_lanes(Q)
+        log(f"[lanes] Q={Q}: " + "; ".join(
+            f"L={L} config3 {ms['config3', L]:.4f} + 1 Gb segment "
+            f"{ms['1 Gb segment', L]:.4f} = {sums[L]:.4f}" for L in sums)
+            + f" ms; fastest L={fastest}, launcher L={launcher}")
+        if sums[launcher] > sums[fastest] * LANE_NOISE:
+            wrong[Q] = sums
+    del big
+    if wrong:
+        raise AssertionError(f"the launcher's L is not the fastest at {wrong}")
 
 
 def norm_rows(text: str) -> list:
@@ -1102,6 +1246,15 @@ def main() -> int:
         f"built and loaded in {time.perf_counter() - t0:.3f} s")
     for name, lib in dp_cuda.build_all(tuple(dp_cuda.SOURCES)).items():
         log(f"[build] ptxas, {name}: {ptxas_summary(lib.with_name(lib.name + '.log'))}")
+    lib = dp_cuda.build_all(["screen_dual"])["screen_dual"]
+    dual_regs = dual_ptxas(lib.with_name(lib.name + ".log"))
+    log("[build] screen_dual registers (Q/L): " + ", ".join(
+        f"{q}/{L} {r}" for (q, L), (r, _sp) in sorted(dual_regs.items())
+        if q in (1, 20, 21, 47, 48)))
+    spilled = {key: sp for key, (_r, sp) in dual_regs.items() if sp}
+    built = sum(L <= q for L in dp_cuda.DUAL_LANES for q in range(1, dp_cuda.Q_MAX + 1))
+    if len(dual_regs) != built or spilled:
+        raise AssertionError(f"screen_dual: {len(dual_regs)} instantiations, spills {spilled}")
 
     phase_s = {}
     try:
@@ -1111,9 +1264,15 @@ def main() -> int:
             # 3. Kernel vs plain, on the card
             t0 = time.perf_counter()
             scorer = derive_scorer()
-            max_err, kernel_ms, plain_ms, genome, dual_n = kernel_vs_plain(
+            max_err, kernel_ms, plain_ms, genome, main_kw = kernel_vs_plain(
                 torch, np, dp_cuda, dp_screen, gs, scorer, device
             )
+            dual_n = main_kw[1]["n_windows"]
+            dual_lanes(torch, np, dp_cuda, dp_screen, gs, scorer, genome, main_kw, dual_regs)
+            for L, c in dual_sass(dp_cuda).items():
+                log(f"[lanes] SASS of screen_dual_kernel<20, {L}>: {c['total']} instructions; "
+                    f"steady loop {c['loop']} with {c['loop_VIADDMNMX']} VIADDMNMX, "
+                    f"{c['per_cell_chain']:.2f} per cell and chain; {c['loop_top']}")
             phase_s["3 dual vs plain"] = time.perf_counter() - t0
 
             # 4. Main path at chr21 scale

@@ -1,5 +1,6 @@
-"""The CUDA screen kernels (dual-chain and multi-guide) against their
-plain PyTorch versions, bit for bit, on the card.  Skipped where torch
+"""The CUDA screen kernels (dual-chain, each lane count of its lane
+split, and multi-guide) against their plain PyTorch versions, bit for
+bit, on the card.  Skipped where torch
 sees no CUDA device; run on the GPU machine with
 ``python -m pytest tests/test_torch_dp_cuda.py``."""
 
@@ -30,12 +31,20 @@ def cuda():
     return torch.device("cuda")
 
 
+# The lane split's edge cases: each L <= Q of the dual kernel (Q not a
+# multiple of L leaves the last lanes fewer rows, or none).
+LANE_GRIDS = {1: (2500, 2489, True), 2: (40, 28, False), 21: (1000, 970, True),
+              23: (1003, 973, False), 47: (64, 7, True), 48: (1003, 947, True)}
+
+
 @pytest.mark.parametrize(
-    "Q,window,step,pam_gate",
-    [(1, 41, 13, True), (20, 1000, 973, True), (20, 63, 36, False),
-     (23, 45, 18, True), (48, 2500, 2445, True), (48, 64, 9, False)],
+    "Q,window,step,pam_gate,lanes",
+    [(1, 41, 13, True, None), (20, 1000, 973, True, None), (20, 63, 36, False, None),
+     (23, 45, 18, True, None), (48, 2500, 2445, True, None), (48, 64, 9, False, None)]
+    + [(Q, *grid, L) for Q, grid in LANE_GRIDS.items() for L in dp_cuda.DUAL_LANES if L <= Q],
 )
-def test_kernel_matches_plain_version(cuda, Q, window, step, pam_gate):
+def test_kernel_matches_plain_version(cuda, Q, window, step, pam_gate, lanes):
+    """``lanes`` None = the launcher's table; else ``_screen_dual_lanes``."""
     rng = np.random.default_rng(Q * 7919 + window)
     genome = torch.from_numpy(
         rng.integers(0, 64, size=200_000, dtype=np.uint8)
@@ -47,7 +56,11 @@ def test_kernel_matches_plain_version(cuda, Q, window, step, pam_gate):
     best0, _ = screen_dual_reference(genome, qvals, **kw)
     kw["min_score"] = int(best0.float().median())
     launches = dp_cuda.launches["screen_dual"]
-    got = dp_cuda.screen_dual(genome, qvals, **kw)
+    if lanes is None:
+        assert dp_cuda.screen_dual_default_lanes(Q) in dp_cuda.DUAL_LANES
+        got = dp_cuda.screen_dual(genome, qvals, **kw)
+    else:
+        got = dp_cuda._screen_dual_lanes(genome, qvals, lanes=lanes, **kw)
     torch.cuda.synchronize()
     assert dp_cuda.launches["screen_dual"] == launches + 1
     want = screen_dual_reference(genome, qvals, **kw)

@@ -140,7 +140,9 @@ def test_screen_dual_reference_reads_past_end_as_zero():
     np.testing.assert_array_equal(short[1].numpy(), ranges)
 
 
-def test_wrapper_routes_cpu_tensors_to_the_plain_version():
+@pytest.mark.parametrize("lanes", [None, 1, 2])
+def test_wrapper_routes_cpu_tensors_to_the_plain_version(lanes):
+    """``lanes`` None = ``screen_dual``; else ``_screen_dual_lanes``."""
     rng = np.random.default_rng(9)
     qvals = rng.integers(1, 16, size=(2, 8)).astype(np.int32)
     genome = torch.from_numpy(rng.integers(0, 64, size=300, dtype=np.uint8))
@@ -148,7 +150,10 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
               pam_gate=True, **SKW)
     launches = dict(dp_cuda.launches)
     calls = port_dp.reference_calls["cpu"]
-    got = dp_cuda.screen_dual(genome, qvals, **kw)
+    if lanes is None:
+        got = dp_cuda.screen_dual(genome, qvals, **kw)
+    else:
+        got = dp_cuda._screen_dual_lanes(genome, qvals, lanes=lanes, **kw)
     want = port_dp.screen_dual_reference(genome, qvals, **kw)
     assert dp_cuda.launches == launches
     assert port_dp.reference_calls["cpu"] == calls + 2
@@ -182,4 +187,14 @@ def test_wrapper_rejects_other_devices():
         dp_cuda.screen_dual(
             genome, np.ones((2, 4)), base0=0, step=8, n_windows=4, window=8,
             min_score=0, pam_gate=False, **SKW
+        )
+
+
+@pytest.mark.parametrize("Q,lanes", [(8, 3), (8, 16), (8, 4), (20, 8), (1, 2)])
+def test_lanes_helper_rejects_what_the_kernel_is_not_built_for(Q, lanes):
+    with pytest.raises(ValueError):
+        dp_cuda._screen_dual_lanes(
+            torch.zeros(64, dtype=torch.uint8), np.ones((2, Q)), lanes=lanes,
+            base0=0, step=8, n_windows=4, window=8, min_score=0, pam_gate=False,
+            **SKW
         )

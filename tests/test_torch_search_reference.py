@@ -120,3 +120,24 @@ def test_profile_dir_writes_a_trace(tmp_path):
                 engine="gpu", device="cpu", threads=1,
                 profile_dir=str(tmp_path / "prof"))
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+
+
+@pytest.mark.parametrize("window,engine,noted", [
+    (3000, "gpu", True), (2048, "gpu", False), (3000, "host", False),
+])
+def test_wide_window_note(tmp_path, caplog, window, engine, noted):
+    """The reference's log note for --window-size > 2048 on the device
+    engine (calitas_tpu/tools/search_reference.py:246-256); the table
+    still equals the JAX host engine's."""
+    guide, ref = _reference(tmp_path, 6, "3prime", n=20_000)
+    with caplog.at_level("INFO", logger="calitas_tpu_torch.SearchReference"):
+        port_sr.run(guide=guide, guide_id="g", ref=ref, output=tmp_path / "p.txt",
+                    engine=engine, device="cpu", threads=1, window_size=window)
+    notes = [r.getMessage() for r in caplog.records if "> 2048" in r.getMessage()]
+    assert notes == ([f"--window-size {window} > 2048: end-column ranges use coarser "
+                      "16-column blocks (slightly wider finish DP slices)."]
+                     if noted else [])
+    jax_sr.run(guide=guide, guide_id="g", ref=ref, output=tmp_path / "h.txt",
+               engine="host", threads=1, window_size=window)
+    assert table_without_timestamp(tmp_path / "p.txt") == table_without_timestamp(
+        tmp_path / "h.txt")

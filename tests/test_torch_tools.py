@@ -122,6 +122,67 @@ def test_pairwise_gpu_engine_equals_host_with_competitive_rev(tmp_path):
     assert len(host.splitlines()) == 31
 
 
+def test_fallback_finish_skips_rev_passes_by_the_screen_bounds(tmp_path, a2r_ref,
+                                                               monkeypatch):
+    """Without the native library the host workers finish item by item;
+    the gpu engine hands each item its pass bounds, so ``align_best`` and
+    ``align_to_ref_best`` skip the rev pass wherever the bound shows it
+    cannot win, and the tables still equal the host engine's."""
+    from calitas_tpu_torch import native
+    from calitas_tpu_torch.align.engine import SequentialAligner
+
+    rng = np.random.default_rng(5)
+    lines = []
+    for i in range(24):
+        proto = "".join(rng.choice(list("ACGT"), 20))
+        site = proto
+        if i % 3 == 0:  # a worse forward site and a perfect one on the other strand
+            site = "T" + proto[1:9] + "T" + proto[10:]
+        t = ("".join(rng.choice(list("ACGT"), 30)) + site + "TGG"
+             + "".join(rng.choice(list("ACGT"), 30)))
+        if i % 3 == 0:
+            t += revcomp(proto + "AGG")
+        lines.append(f"{proto}nrg\t{t}")
+    pairs = tmp_path / "pairs.txt"
+    pairs.write_text("\n".join(lines) + "\n")
+    ref, loci = a2r_ref
+    runs = {"pairs": ["PairwiseAlignSequences", "-i", pairs],
+            "a2r best": ["AlignToReference", "-i", loci, "-r", ref]}
+    for name, argv in runs.items():
+        _cli([*argv, "-t", "1", "-o", tmp_path / f"{name}_host.txt", "--engine", "host"])
+
+    calls = {"bounds": 0, "passes": []}
+    real_align = SequentialAligner.align
+
+    def align(self, *a, passes=("fwd", "rev"), **kw):
+        calls["passes"].append(tuple(passes))
+        return real_align(self, *a, passes=passes, **kw)
+
+    for fn in ("align_best", "align_to_ref_best"):
+        real = getattr(SequentialAligner, fn)
+
+        def counted(self, *a, _real=real, **kw):
+            calls["bounds"] += kw.get("pass_dp_bounds") is not None
+            return _real(self, *a, **kw)
+
+        monkeypatch.setattr(SequentialAligner, fn, counted)
+    monkeypatch.setattr(SequentialAligner, "align", align)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", True)
+    assert not native.available()
+    n_items = {"pairs": 24, "a2r best": 30}
+    for name, argv in runs.items():
+        calls["bounds"], calls["passes"] = 0, []
+        _cli([*argv, "-t", "1", "-o", tmp_path / f"{name}_gpu.txt", *GPU_ON_CPU])
+        got = norm_rows((tmp_path / f"{name}_gpu.txt").read_text())
+        assert got == norm_rows((tmp_path / f"{name}_host.txt").read_text()), name
+        fwd, rev = calls["passes"].count(("fwd",)), calls["passes"].count(("rev",))
+        # Every item went through the bounds path: a fwd pass, and a rev
+        # pass only where the bound let the rev strand compete.
+        assert calls["bounds"] == n_items[name] == fwd, (name, calls)
+        assert 0 < rev < fwd, (name, fwd, rev)
+
+
 def test_auto_rule_of_the_list_tools(monkeypatch):
     from calitas_tpu_torch import native
 
