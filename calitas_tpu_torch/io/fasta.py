@@ -14,6 +14,7 @@ from __future__ import annotations
 import hashlib
 import mmap
 import os
+import re
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterator, Optional, Sequence
@@ -188,9 +189,22 @@ def _uncompressed_cache_for(path: Path) -> Path:
             # (e.g. sticky-bit /tmp) skip that file, not the loop.
             # Best-effort; a racing reader that has the old file open
             # keeps it alive via its fd.
-            for old in base.glob(
+            stale = list(base.glob(
                 f".{path.name}.calitas_cache_{pathkey}_*.fa"
-            ):
+            ))
+            if base == path.parent:
+                # Sidecars of the older single-hash naming,
+                # .{name}.calitas_cache_{32 hex}.fa, carry no path key:
+                # only the FASTA's own directory is known to hold them
+                # for this file, so a shared fallback dir keeps its own.
+                legacy = re.compile(
+                    rf"\.{re.escape(path.name)}\.calitas_cache_[0-9a-f]{{32}}\.fa"
+                )
+                stale += [
+                    old for old in base.glob(f".{path.name}.calitas_cache_*.fa")
+                    if legacy.fullmatch(old.name)
+                ]
+            for old in stale:
                 if old.name == cache.name:
                     continue
                 try:

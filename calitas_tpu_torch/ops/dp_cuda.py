@@ -50,6 +50,8 @@ Q_MAX = 48
 G_MAX = 65535
 #: lanes per window the dual kernel is built for (csrc/screen_dual.cu)
 DUAL_LANES = (1, 2)
+#: lanes per window the multi-guide kernel is built for (csrc/screen_multi.cu)
+MULTI_LANES = (1, 2, 4)
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {
@@ -101,8 +103,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The library of source ``name``, keyed by the source, every header
+    of ``csrc/`` (the sources include ``dp_lane.cuh``) and the flags."""
     key = hashlib.sha256(
-        SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
+        SOURCES[name].read_bytes()
+        + b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 
@@ -169,13 +175,18 @@ def _bind(lib: ctypes.CDLL, name: str) -> None:
             fn.argtypes = [vp, i32, ll, i32, i32, vp, vp]  # tcols, T, N, Q, bias, out, stream
             fn.restype = i32
     else:
-        lib.calitas_screen_multi.argtypes = [
+        multi = [
             vp, ll, ll, ll, i32, i32,  # genome, len, base0, step, window, n
             vp, i32, i32, vp,  # qvals, q_len, n_guides, min_scores
             i32, i32, i32, i32, i32,  # scores, pam_gate
             vp, vp, vp,  # best, ranges (0 = none), stream
         ]
-        lib.calitas_screen_multi.restype = i32
+        lib.calitas_screen_multi.argtypes = multi
+        lib.calitas_screen_multi_lanes.argtypes = [*multi, i32]  # lanes
+        lib.calitas_screen_multi_default_lanes.argtypes = [i32, i32, i32, i32]
+        for fn in (lib.calitas_screen_multi, lib.calitas_screen_multi_lanes,
+                   lib.calitas_screen_multi_default_lanes):
+            fn.restype = i32
     lib.calitas_cuda_error_string.argtypes = [i32]
     lib.calitas_cuda_error_string.restype = ctypes.c_char_p
 
@@ -403,51 +414,127 @@ def screen_multi(
     None), each guide against its own ``min_scores[g]`` (contract:
     :func:`screen_multi_reference`).
 
-    CUDA tensors launch the kernel on the current stream; CPU tensors run
-    the plain version.  Q > 48 on CUDA raises NotImplementedError."""
+    CUDA tensors launch the kernel on the current stream, with the lanes
+    per window the kernel's table gives the query length, the number of
+    (window, guide) pairs and ``emit_ranges``
+    (:func:`screen_multi_default_lanes`); CPU
+    tensors run the plain version.  Q > 48 on CUDA raises
+    NotImplementedError."""
+    return _screen_multi(genome, qvals, min_scores, None, dict(
+        base0=base0, step=step, n_windows=n_windows, window=window,
+        match=match, mismatch=mismatch, qgap=qgap, tgap=tgap,
+        pam_gate=pam_gate, emit_ranges=emit_ranges,
+    ))
+
+
+def _check_multi_lanes(lanes, Q: int):
+    if lanes is not None and not (lanes in MULTI_LANES and lanes <= Q):
+        raise ValueError(f"lanes must be one of {MULTI_LANES} and at most Q={Q}, got {lanes}")
+
+
+def _screen_multi_lanes(genome: torch.Tensor, qvals: np.ndarray,
+                        min_scores: np.ndarray, *, lanes: int, **kw):
+    """:func:`screen_multi` with ``lanes`` lanes per window (one of
+    :data:`MULTI_LANES`, at most Q) instead of the table's choice, for
+    timing and checking each lane count of the kernel.  Counts as a
+    ``screen_multi`` launch.  CPU tensors run the plain version."""
+    _check_multi_lanes(lanes, np.shape(qvals)[-1])
+    return _screen_multi(genome, qvals, min_scores, lanes, kw)
+
+
+def screen_multi_default_lanes(q_len: int, n_windows: int, n_guides: int,
+                               emit_ranges: bool) -> int:
+    """The lanes per window :func:`screen_multi` launches ``n_guides``
+    ``q_len``-base guides over ``n_windows`` windows with (the kernel's
+    compile-time table): a launch without ranges is a slot batch, with
+    them a genome grid.  Builds the kernels."""
+    _check_q_len(q_len, "multi-guide")
+    return library("screen_multi").calitas_screen_multi_default_lanes(
+        q_len, n_windows, n_guides, int(bool(emit_ranges)))
+
+
+def _multi_args(genome, qvals, min_scores, kw):
+    """``(qvals, min_scores)`` as checked int32 host arrays."""
     qvals = np.ascontiguousarray(qvals, dtype=np.int32)
     min_scores = np.ascontiguousarray(min_scores, dtype=np.int32)
-    _check_grid(genome, base0, step, n_windows, window)
+    _check_grid(genome, kw["base0"], kw["step"], kw["n_windows"], kw["window"])
     if qvals.ndim != 3 or qvals.shape[1] != 2 or qvals.shape[2] < 1:
         raise ValueError(f"qvals must be [G, 2, Q] with Q >= 1, got {qvals.shape}")
-    G, _, Q = qvals.shape
+    G = qvals.shape[0]
     if not 1 <= G <= G_MAX or min_scores.shape != (G,):
         raise ValueError(
             f"need 1..{G_MAX} guides with one min score each: qvals "
             f"{qvals.shape}, min_scores {min_scores.shape}"
         )
     _check_masks(qvals)
-    kw = dict(
-        base0=base0, step=step, n_windows=n_windows, window=window,
-        match=match, mismatch=mismatch, qgap=qgap, tgap=tgap,
-        pam_gate=pam_gate, emit_ranges=emit_ranges,
-    )
-    if genome.device.type == "cpu":
-        return screen_multi_reference(genome, qvals, min_scores, **kw)
-    _check_q_len(Q, "multi-guide")
+    return qvals, min_scores
+
+
+def _multi_prepared(genome, qvals, min_scores, lanes, kw):
+    """The outputs of one multi-guide launch on a CUDA tensor, allocated,
+    and the masks and min scores uploaded: ``(launch, (best, ranges))``,
+    where ``launch()`` launches the kernel into those outputs on the
+    current stream, raises on a refused launch and counts it."""
+    G, _, Q = qvals.shape
     dev = genome.device
+    n_windows = kw["n_windows"]
     best = torch.empty((G, 2, n_windows), dtype=torch.int32, device=dev)
     ranges = (
         torch.empty((G, 2, 2, n_windows), dtype=torch.int32, device=dev)
-        if emit_ranges
+        if kw["emit_ranges"]
         else None
     )
-    if n_windows == 0:
-        return best, ranges
-    lib = library("screen_multi")
     with torch.cuda.device(dev):
         q_dev = to_device(qvals, dev)
         ms_dev = to_device(min_scores, dev)
-        err = lib.calitas_screen_multi(
-            genome.data_ptr(), genome.numel(), base0, step, window, n_windows,
-            q_dev.data_ptr(), Q, G, ms_dev.data_ptr(), match, mismatch, qgap,
-            tgap, int(bool(pam_gate)), best.data_ptr(),
-            ranges.data_ptr() if ranges is not None else None,
+
+    def launch():
+        lib = library("screen_multi")
+        args = (
+            genome.data_ptr(), genome.numel(), kw["base0"], kw["step"], kw["window"],
+            n_windows, q_dev.data_ptr(), Q, G, ms_dev.data_ptr(), kw["match"],
+            kw["mismatch"], kw["qgap"], kw["tgap"], int(bool(kw["pam_gate"])),
+            best.data_ptr(), ranges.data_ptr() if ranges is not None else None,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(lib, err, "screen_multi")
-    _count_launch("screen_multi")
-    return best, ranges
+        with torch.cuda.device(dev):
+            if lanes is None:
+                err = lib.calitas_screen_multi(*args)
+            else:
+                err = lib.calitas_screen_multi_lanes(*args, lanes)
+        _raise_on(lib, err, "screen_multi")
+        _count_launch("screen_multi")
+
+    return launch, (best, ranges)
+
+
+def _screen_multi(genome, qvals, min_scores, lanes, kw):
+    qvals, min_scores = _multi_args(genome, qvals, min_scores, kw)
+    if genome.device.type == "cpu":
+        return screen_multi_reference(genome, qvals, min_scores, **kw)
+    _check_q_len(qvals.shape[2], "multi-guide")
+    launch, out = _multi_prepared(genome, qvals, min_scores, lanes, kw)
+    if kw["n_windows"] > 0:
+        launch()
+    return out
+
+
+def _screen_multi_launcher(genome: torch.Tensor, qvals: np.ndarray,
+                           min_scores: np.ndarray, *, lanes=None, **kw):
+    """A prepared :func:`screen_multi` (``lanes`` None) or
+    :func:`_screen_multi_lanes` call on a CUDA tensor, for timing: the
+    masks and min scores go to the card and the outputs are allocated
+    once, here; the returned ``launch()`` only launches, into those
+    outputs, on the current stream, so it can be captured in a CUDA
+    graph.  Returns ``(launch, (best, ranges))``."""
+    if genome.device.type != "cuda":
+        raise ValueError(f"a prepared launch needs a CUDA tensor, got {genome.device}")
+    _check_multi_lanes(lanes, np.shape(qvals)[-1])
+    qvals, min_scores = _multi_args(genome, qvals, min_scores, kw)
+    _check_q_len(qvals.shape[2], "multi-guide")
+    if kw["n_windows"] < 1:
+        raise ValueError("a prepared launch needs at least one window")
+    return _multi_prepared(genome, qvals, min_scores, lanes, kw)
 
 
 def _on_device(x, dev: torch.device, dtype: torch.dtype, what: str) -> torch.Tensor:

@@ -23,6 +23,7 @@ lanes' count, and a bound must not exceed the least time the card takes.
 
 from __future__ import annotations
 
+import math
 import subprocess
 
 import numpy as np
@@ -209,6 +210,46 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_times_ms(launches: dict, *, replay_ms: float = 2.0, trials: int = 5) -> dict:
+    """``{key: ms}`` for ``launches``, ``{key: launch}``: the least over
+    ``trials`` of the mean ms per call of each ``launch`` (a zero-arg
+    function that only enqueues work on the current stream, such as
+    ``dp_cuda._screen_multi_launcher``'s), with its calls captured in one
+    CUDA graph.  The host's per-call cost stays out of the time, so
+    launches of a few microseconds are timed as the card runs them back to
+    back.  Each graph holds enough calls (3 to 1000) for one replay to take
+    about ``replay_ms``, so that the replay's own start-up is a small share
+    of the mean; each trial replays every key's graph in turn, so that a
+    change of clock during the run falls on all keys alike.  CUDA events
+    around each replay, after a warm-up call and a warm-up replay."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    graphs = {}
+    for key, launch in launches.items():
+        launch()
+        start.record()
+        launch()
+        end.record()
+        torch.cuda.synchronize()
+        reps = min(1000, max(3, math.ceil(replay_ms / max(start.elapsed_time(end), 1e-3))))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                launch()
+        graph.replay()
+        graphs[key] = graph, reps
+    torch.cuda.synchronize()
+    best = dict.fromkeys(graphs, float("inf"))
+    for _ in range(trials):
+        for key, (graph, reps) in graphs.items():
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            best[key] = min(best[key], start.elapsed_time(end) / reps)
+    return best
+
+
 def _row(ms: float, work: tuple[int, int], peak: float) -> dict:
     ops, nbytes = work
     b_ms, b_by = bound_ms(ops, nbytes, peak)
@@ -228,7 +269,10 @@ def roofline(device, *, reps: int = 20, seed: int = 0) -> dict:
     Probe shapes: T 1024, Q 20 at N 32,768 (``screen_ab.py``'s) and at N
     = SMs x 2048 (every SM full).  Screen shapes: config3's grid (41,238
     windows of 1000 columns, step 973, Q 20, PAM gate and ranges on) for
-    the dual kernel and the multi-guide kernel at G 4; 41,238 ragged rows
+    the dual kernel and the multi-guide kernel at G 4; the variant pass's
+    slot batch (8,192 rows x 64 columns, flattened, one guide, gate and
+    ranges off, launches timed as a CUDA graph) for the multi-guide
+    kernel; 41,238 ragged rows
     x 1000 columns, one shared Q 20 query for the row kernel, and 20,000
     rows x slot 256, per-row queries, both chains, ranges on.  Raises
     ValueError when ``device`` is not CUDA."""
@@ -281,6 +325,17 @@ def roofline(device, *, reps: int = 20, seed: int = 0) -> dict:
     out["kernels"]["screen_multi G=4"] = _row(
         ms, grid_work(contig, 0, step, n_windows, window, Q, guides=4), peak)
     del genome
+    # The variant pass's slot batch, flattened: one wrapper call at a time
+    # is paced by the host's mask upload, so the launches run as a graph.
+    B, slot = 8192, 64
+    slots = torch.randint(0, 16, (B * slot,), generator=gen, device=device, dtype=torch.uint8)
+    launch, _out = dp_cuda._screen_multi_launcher(
+        slots, qv[:1], mss[:1], base0=0, step=slot, n_windows=B, window=slot,
+        pam_gate=False, emit_ranges=False, **sk)
+    out["kernels"]["screen_multi slots G=1"] = _row(
+        graph_times_ms({0: launch})[0], grid_work(B * slot, 0, slot, B, slot, Q,
+                                              emit_ranges=False), peak)
+    del slots, _out
 
     B, T_rows = n_windows, 1000
     tm = torch.randint(1, 16, (B, T_rows), generator=gen, device=device, dtype=torch.uint8)

@@ -14,6 +14,7 @@ lists reproducible too).
 
 from __future__ import annotations
 
+import logging
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable, Iterator, TypeVar
 
@@ -38,7 +39,12 @@ class BlockFeed:
     (e.g. the reference pass — the tool creates the variant feeds
     before pass 1).  At most ``depth`` completed blocks buffer;
     exceptions from the stream re-raise at the draining side; close()
-    (or abandoning the drain) stops the producer."""
+    (or abandoning the drain) stops the producer.
+
+    The stop is best effort: the producer sees it only between items of
+    ``stream``, so one blocked inside the stream (a device dispatch, a
+    read) runs on until that call returns.  close() waits ``timeout``
+    seconds for it, then logs a warning naming the thread and returns."""
 
     def __init__(self, stream: Iterable[W], block_size: int, depth: int = 2):
         import queue as _queue
@@ -94,14 +100,20 @@ class BlockFeed:
         finally:
             self.close()
 
-    def close(self) -> None:
+    def close(self, timeout: float = 10.0) -> None:
         self._stop.set()
         while True:
             try:
                 self._q.get_nowait()
             except self._empty:
                 break
-        self._thread.join(timeout=10)
+        self._thread.join(timeout=timeout)
+        if self._thread.is_alive():
+            logging.getLogger(__name__).warning(
+                "BlockFeed.close(): producer thread %s still running %.1f s "
+                "after the stop (blocked inside its stream); it ends when "
+                "that call returns", self._thread.name, timeout,
+            )
 
 
 def iter_blocks_threaded(

@@ -11,7 +11,8 @@ Phases, each raising on failure:
 2. Build: compiles the CUDA kernels from ``calitas_tpu_torch/csrc`` (the
    three screens and the roofline probes), one nvcc per source, started
    together, and prints the build time; every ``screen_dual`` instantiation
-   (Q 1-48 x lanes 1/2, L <= Q) must be there and none may spill.
+   (Q 1-48 x lanes 1/2, L <= Q) and every ``screen_multi`` one (Q 1-48 x
+   lanes 1/2/4, L <= Q) must be there and none may spill.
 3. Kernel vs plain: on a seeded 40 Mb annotated genome with planted guide
    sites, the kernel's best scores and end-column ranges must equal its
    plain PyTorch version bit for bit (query lengths 20/24/48, PAM gate on
@@ -35,7 +36,23 @@ Phases, each raising on failure:
    bit for bit on window grids (G 1/4/17, Q 20/24/48, gate on and off,
    windows 40/64/1000/1003) and on slot batches (B 8192, T 64/128/512, gate
    off); times the kernel at G 4/8/16 and the plain version at G 4 on one
-   segment of the main path's shape.
+   segment of the main path's shape.  Then each lane count L of the
+   kernel (``_screen_multi_lanes``) against the plain version, ranges on
+   and off, at Q 1/2/21/23/47/48 (G 1/4/17, 4,099 windows whose last ones
+   run past the genome's end, min scores at INT32_MIN and INT32_MAX) and
+   on slot batches (B 8192 x T 64/128, G 1/4); at Q 20, each L's time
+   and the launcher's choice at (a) config5s (10,310 windows, G 4), (b)
+   config3's grid (G 4), (c) the variant pass's slot batches (B 8192 x T
+   64/128, G 1/4) and (d) the launches between and beyond them (config5s's
+   grid at G 2/8, a 2 Mb contig's 2,000 windows at G 4, slots of T 64 at
+   G 2 and of T 256/512 at G 1/4), each the least of ten means of a
+   CUDA graph of about 2 ms (two sets of graphs, five trials each, the
+   L's of a shape replayed in turn within each trial), with each L's
+   registers and spills; the same at
+   every Q from 2 to 48 (the launcher's L must be within 3 % of the
+   fastest at every shape); the SASS instruction counts of
+   ``screen_multi_kernel<20, L>``.  After phase 13, each shape's bound
+   and share.
 6. Golden config 5s: config 5s's four same-length guides over
    its 10 Mb contig, as a ``--guide-file`` through the port's CLI; the
    table must equal benchmarks/golden/config5s.txt.gz, the multi-guide
@@ -79,7 +96,8 @@ Phases, each raising on failure:
    benchmarks/screen_ab.py's (T 1024, N 32,768, Q 20); times both there;
    then ``ops/probes.py::roofline`` times both probes there and on a
    card-filling shape (N = SMs x 2048) and the three screen kernels at
-   their main-path shapes, and prints each one's bound and share.
+   their main-path shapes (the multi-guide kernel also at a variant slot
+   batch, B 8192 x T 64, G 1), and prints each one's bound and share.
 
 After the phases, passed or not, it stops every process it started and
 waits for each to end: the finish pool's workers, then the resource
@@ -143,14 +161,15 @@ def ptxas_summary(path: Path) -> str:
             + (f"; Q 20/48: {probes}" if any(probes.values()) else ""))
 
 
-def dual_ptxas(path: Path) -> dict:
-    """``{(Q, lanes): (registers, spill bytes)}`` of every
-    ``screen_dual_kernel`` instantiation, from ptxas's ``-v`` report."""
+def lane_ptxas(path: Path, kernel: str = "screen_dual_kernel") -> dict:
+    """``{(Q, lanes): (registers, spill bytes)}`` of every ``kernel<Q, L>``
+    instantiation (``screen_dual_kernel`` or ``screen_multi_kernel``),
+    from ptxas's ``-v`` report."""
     import re
 
     out = {}
     for entry in path.read_text().split("Compiling entry function")[1:]:
-        m = re.search(r"screen_dual_kernelILi(\d+)ELi(\d+)EE", entry)
+        m = re.search(rf"{kernel}ILi(\d+)ELi(\d+)EE", entry)
         regs = re.search(r"Used (\d+) registers", entry)
         if not m or not regs:
             continue
@@ -159,8 +178,8 @@ def dual_ptxas(path: Path) -> dict:
     return out
 
 
-def dual_sass(dp_cuda, Q: int = 20) -> dict:
-    """Instruction counts of ``screen_dual_kernel<Q, L>`` for each L, from
+def lane_sass(dp_cuda, source: str = "screen_dual", Q: int = 20) -> dict:
+    """Instruction counts of ``<source>_kernel<Q, L>`` for each L, from
     its SASS (cuobjdump): the whole kernel, and its steady loop (the
     backward branch whose body holds the most DPX add+max, VIADDMNMX)
     with that loop's instructions per DP cell and chain (each cell of a
@@ -170,12 +189,12 @@ def dual_sass(dp_cuda, Q: int = 20) -> dict:
     from collections import Counter
 
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    lib = dp_cuda.build_all(["screen_dual"])["screen_dual"]
+    lib = dp_cuda.build_all([source])[source]
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
     out = {}
     for body in re.split(r"\n\s*Function : ", sass)[1:]:
-        m = re.match(rf".*screen_dual_kernelILi{Q}ELi(\d+)EE", body.split("\n", 1)[0])
+        m = re.match(rf".*{source}_kernelILi{Q}ELi(\d+)EE", body.split("\n", 1)[0])
         if not m:
             continue
         ins = [(int(a, 16), op.split(".")[0], rest) for a, op, rest in re.findall(
@@ -194,7 +213,7 @@ def dual_sass(dp_cuda, Q: int = 20) -> dict:
                           "per_cell_chain": 2 * len(loop) / max(ops["VIADDMNMX"], 1),
                           "loop_top": dict(ops.most_common(8))}
     if not out:
-        raise AssertionError(f"screen_dual_kernel<{Q}, L> not found in the SASS")
+        raise AssertionError(f"{source}_kernel<{Q}, L> not found in the SASS")
     return out
 
 
@@ -568,6 +587,186 @@ def multi_vs_plain(torch, np, dp_cuda, dp_screen, gs, scorer, genome, screen):
         + ", ".join(f"G={G} {ms:.4f} ms" for G, ms in kernel_ms.items())
         + f"; plain G=4 {plain_ms:.4f} ms")
     return max_err, kernel_ms, plain_ms
+
+
+CONFIG5S_WINDOWS = 10_310  # config 5s's 10 Mb contig at step 970
+SLOT_B = 8192  # the variant pass's slot batch (search/variants.py::dispatch)
+
+
+def multi_shapes(torch, np, genome, scorer, Q: int, rng) -> list:
+    """The multi-guide kernel's timed shapes at query length ``Q``:
+    ``[(label, genome, qvals, min_scores, grid kwargs)]`` for (a)
+    config5s (10,310 windows of 1000, G 4, gate and ranges on), (b)
+    config3's grid (G 4, gate and ranges on) and (c) the variant pass's
+    slot batches (B 8192 x T 64 / 128, flattened with step = window = T,
+    gate and ranges off, G 1 and 4); then (d), the launches between and
+    beyond those that real runs also make: config5s's grid at G 2 and 8,
+    a 2 Mb contig's 2,000 windows at G 4, slot batches of G 2 at T 64 and
+    of wider slots (T 256 / 512, which longer variant windows take) at G 1
+    and 4.  ``genome`` is phase 3's annotated 40 Mb genome; the slots are
+    its masks at seeded starts."""
+    sk = dict(match=scorer.match_score, mismatch=scorer.mismatch_score,
+              qgap=scorer.query_gap_score, tgap=scorer.target_gap_score)
+    step = 1000 - (Q + 3 + 5 + 3 - 1)  # the CLI's step for a Q+3 guide
+    ms = scorer.match_score * Q - 5 * 122
+
+    def guides(G):
+        qv = rng.choice(np.array([1, 2, 4, 8], np.int32), (G, 2, Q))
+        return qv, np.full(G, ms, np.int32)
+
+    grid = dict(base0=0, step=step, window=1000, pam_gate=True, emit_ranges=True, **sk)
+    out = [("a config5s G=4", genome, *guides(4), dict(grid, n_windows=CONFIG5S_WINDOWS)),
+           ("b config3 G=4", genome, *guides(4),
+            dict(grid, n_windows=(CONTIG - 2) // step + 1))]
+    masks = genome & 15
+    slots = {}
+    for T in (64, 128, 256, 512):
+        starts = torch.as_tensor(rng.integers(0, CONTIG - T, SLOT_B), device=genome.device)
+        rows = masks[starts[:, None] + torch.arange(T, device=genome.device)]
+        slots[T] = (rows.reshape(-1).contiguous(),
+                    dict(base0=0, step=T, n_windows=SLOT_B, window=T, pam_gate=False,
+                         emit_ranges=False, **sk))
+    for T in (64, 128):
+        for G in (1, 4):
+            out.append((f"c slots T={T} G={G}", slots[T][0], *guides(G), slots[T][1]))
+    for G in (2, 8):
+        out.append((f"d config5s G={G}", genome, *guides(G),
+                    dict(grid, n_windows=CONFIG5S_WINDOWS)))
+    out.append(("d 2 Mb contig G=4", genome, *guides(4), dict(grid, n_windows=2_000)))
+    for T, G in ((64, 2), (256, 1), (256, 4), (512, 1), (512, 4)):
+        out.append((f"d slots T={T} G={G}", slots[T][0], *guides(G), slots[T][1]))
+    return out
+
+
+def multi_shape_times(dp_cuda, probes, shape, lanes) -> dict:
+    """``{L: ms}``: one multi-guide launch at ``shape`` (from
+    :func:`multi_shapes`) with each L of ``lanes``, timed together by
+    ``probes.graph_times_ms`` (CUDA graphs of about 2 ms each, the L's
+    replayed in turn within each of five trials), twice, each time with
+    new outputs and graphs; each L's least time."""
+    _label, g, qv, mss, kw = shape
+    best = {}
+    for _ in range(2):
+        launches = {L: dp_cuda._screen_multi_launcher(g, qv, mss, lanes=L, **kw)[0]
+                    for L in lanes}
+        for L, t in probes.graph_times_ms(launches).items():
+            best[L] = min(best.get(L, t), t)
+    return best
+
+
+INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
+
+
+def multi_lanes_vs_plain(torch, np, dp_cuda, dp_screen, scorer, genome) -> int:
+    """Phase 5: every lane count of the multi-guide kernel
+    (``_screen_multi_lanes``) against the plain version, bit for bit: on
+    the lane split's edge cases (Q 1/2/21/23/47/48, G 1/4/17, gate on and
+    off, 4,099 windows whose last ones run past the genome's end, ranges
+    on and off, min scores at INT32_MIN and INT32_MAX beside ordinary
+    ones) and on slot batches (B 8192 x T 64/128, G 1 and 4); returns the
+    max_abs_err."""
+    rng = np.random.default_rng(32)
+    sk = dict(match=scorer.match_score, mismatch=scorer.mismatch_score,
+              qgap=scorer.query_gap_score, tgap=scorer.target_gap_score)
+
+    def check(what, g, qv, mss, kw):
+        want = dp_screen.screen_multi_reference(g, qv, mss, **dict(kw, emit_ranges=True))
+        err = 0
+        for L in (L for L in dp_cuda.MULTI_LANES if L <= qv.shape[-1]):
+            for emit in (True, False):
+                got = dp_cuda._screen_multi_lanes(g, qv, mss, lanes=L,
+                                                  **dict(kw, emit_ranges=emit))
+                torch.cuda.synchronize()
+                pairs = [(got[0], want[0])] + ([(got[1], want[1])] if emit else [])
+                err = max(err, *(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                                 for a, b in pairs))
+                same = all(torch.equal(a, b) for a, b in pairs) and (emit or got[1] is None)
+                log(f"[multi lanes] {what} L={L} ranges={emit} bit-identical={same}")
+                if not same:
+                    raise AssertionError(f"multi kernel L={L} != plain: {what} ranges={emit}")
+        return err
+
+    def thresholds(g, qv, kw):
+        """Per guide: the median best, minus the guide's index; the
+        first two at INT32_MIN and INT32_MAX where there are two."""
+        G = qv.shape[0]
+        best0, _ = dp_screen.screen_multi_reference(
+            g, qv, np.zeros(G, np.int32), **dict(kw, emit_ranges=False))
+        mss = best0.float().median(dim=-1).values.amax(dim=-1).to(torch.int32).cpu().numpy()
+        mss = mss - np.arange(G, dtype=np.int32)
+        if G >= 2:
+            mss[:2] = (INT32_MIN, INT32_MAX)
+        return mss
+
+    max_err = 0
+    n = LANE_WINDOWS
+    for i, (Q, window, gate) in enumerate(LANE_CASES):
+        G = (1, 4, 17)[i % 3]
+        step = window - (Q + 3 + 5 + 3 - 1)
+        # The last three windows start at or past the end of the staged
+        # genome, the ones before run past it.
+        kw = dict(base0=genome.numel() - (n - 3) * step, step=step, n_windows=n,
+                  window=window, pam_gate=gate, **sk)
+        qv = rng.integers(1, 16, (G, 2, Q)).astype(np.int32)
+        max_err = max(max_err, check(
+            f"Q={Q} G={G} window={window} step={step} gate={gate} windows={n} "
+            "(last 3 past the end)", genome, qv, thresholds(genome, qv, kw), kw))
+    masks = genome & 15
+    for T in (64, 128):
+        starts = torch.as_tensor(rng.integers(0, CONTIG - T, SLOT_B), device=genome.device)
+        slots = masks[starts[:, None] + torch.arange(T, device=genome.device)]
+        slots = slots.reshape(-1).contiguous()
+        kw = dict(base0=0, step=T, n_windows=SLOT_B, window=T, pam_gate=False, **sk)
+        for G, Q in ((1, 20), (4, 23)):
+            qv = rng.integers(1, 16, (G, 2, Q)).astype(np.int32)
+            max_err = max(max_err, check(f"slots B={SLOT_B} T={T} G={G} Q={Q}", slots, qv,
+                                         thresholds(slots, qv, kw), kw))
+    return max_err
+
+
+def multi_lane_times(torch, np, dp_cuda, probes, scorer, genome, regs) -> dict:
+    """Phase 5: at Q 20, each shape of :func:`multi_shapes` timed with
+    each L and the launcher's choice; then at every Q from 2 to 48, each L
+    at each shape, and the launcher's L, which must be within
+    ``LANE_NOISE`` of the fastest at every shape.  Returns ``{label: {L:
+    ms, ..., "launcher": L, "work": (ops, bytes)}}`` at Q 20 (the bounds
+    need phase 13's int32 rate)."""
+    rng = np.random.default_rng(33)
+    out = {}
+    for shape in multi_shapes(torch, np, genome, scorer, 20, rng):
+        label, g, qv, _mss, kw = shape
+        G = qv.shape[0]
+        row = multi_shape_times(dp_cuda, probes, shape, dp_cuda.MULTI_LANES)
+        row["launcher"] = dp_cuda.screen_multi_default_lanes(20, kw["n_windows"], G,
+                                                             kw["emit_ranges"])
+        row["work"] = probes.grid_work(g.numel(), kw["base0"], kw["step"], kw["n_windows"],
+                                       kw["window"], 20, guides=G,
+                                       emit_ranges=kw["emit_ranges"])
+        out[label] = row
+        log(f"[multi lanes] {label} ({kw['n_windows']} windows of {kw['window']}, Q 20, "
+            f"gate {kw['pam_gate']}, ranges {kw['emit_ranges']}): " + ", ".join(
+                f"L={x} {row[x]:.5f} ms ({regs[20, x][0]} registers, {regs[20, x][1]} spill "
+                f"bytes)" for x in dp_cuda.MULTI_LANES)
+            + f"; launcher L={row['launcher']}")
+    wrong = {}
+    for Q in range(2, dp_cuda.Q_MAX + 1):
+        line = []
+        for shape in multi_shapes(torch, np, genome, scorer, Q, rng):
+            label, _g, qv, _mss, kw = shape
+            ms = multi_shape_times(dp_cuda, probes, shape,
+                                   [L for L in dp_cuda.MULTI_LANES if L <= Q])
+            fastest = min(ms, key=ms.get)
+            launcher = dp_cuda.screen_multi_default_lanes(Q, kw["n_windows"], qv.shape[0],
+                                                          kw["emit_ranges"])
+            line.append(f"{label}: " + " ".join(f"L{L} {t:.5f}" for L, t in ms.items())
+                        + f" fastest L{fastest} launcher L{launcher}")
+            if ms[launcher] > ms[fastest] * LANE_NOISE:
+                wrong[Q, label] = ms
+        log(f"[multi lanes] Q={Q} (ms): " + "; ".join(line))
+    if wrong:
+        raise AssertionError(f"the launcher's L is not within {LANE_NOISE} of the fastest "
+                             f"at {wrong}")
+    return out
 
 
 def config5s(torch, np, dp_cuda, dp_screen, gs, scorer, device, tmp: Path) -> int:
@@ -1247,7 +1446,7 @@ def main() -> int:
     for name, lib in dp_cuda.build_all(tuple(dp_cuda.SOURCES)).items():
         log(f"[build] ptxas, {name}: {ptxas_summary(lib.with_name(lib.name + '.log'))}")
     lib = dp_cuda.build_all(["screen_dual"])["screen_dual"]
-    dual_regs = dual_ptxas(lib.with_name(lib.name + ".log"))
+    dual_regs = lane_ptxas(lib.with_name(lib.name + ".log"))
     log("[build] screen_dual registers (Q/L): " + ", ".join(
         f"{q}/{L} {r}" for (q, L), (r, _sp) in sorted(dual_regs.items())
         if q in (1, 20, 21, 47, 48)))
@@ -1255,6 +1454,15 @@ def main() -> int:
     built = sum(L <= q for L in dp_cuda.DUAL_LANES for q in range(1, dp_cuda.Q_MAX + 1))
     if len(dual_regs) != built or spilled:
         raise AssertionError(f"screen_dual: {len(dual_regs)} instantiations, spills {spilled}")
+    lib = dp_cuda.build_all(["screen_multi"])["screen_multi"]
+    multi_regs = lane_ptxas(lib.with_name(lib.name + ".log"), "screen_multi_kernel")
+    log("[build] screen_multi registers (Q/L): " + ", ".join(
+        f"{q}/{L} {r}" for (q, L), (r, _sp) in sorted(multi_regs.items())
+        if q in (1, 2, 4, 20, 21, 47, 48)))
+    spilled = {key: sp for key, (_r, sp) in multi_regs.items() if sp}
+    built = sum(L <= q for L in dp_cuda.MULTI_LANES for q in range(1, dp_cuda.Q_MAX + 1))
+    if len(multi_regs) != built or spilled:
+        raise AssertionError(f"screen_multi: {len(multi_regs)} instantiations, spills {spilled}")
 
     phase_s = {}
     try:
@@ -1269,7 +1477,7 @@ def main() -> int:
             )
             dual_n = main_kw[1]["n_windows"]
             dual_lanes(torch, np, dp_cuda, dp_screen, gs, scorer, genome, main_kw, dual_regs)
-            for L, c in dual_sass(dp_cuda).items():
+            for L, c in lane_sass(dp_cuda).items():
                 log(f"[lanes] SASS of screen_dual_kernel<20, {L}>: {c['total']} instructions; "
                     f"steady loop {c['loop']} with {c['loop_VIADDMNMX']} VIADDMNMX, "
                     f"{c['per_cell_chain']:.2f} per cell and chain; {c['loop_top']}")
@@ -1286,6 +1494,14 @@ def main() -> int:
             multi_err, multi_ms, multi_plain_ms = multi_vs_plain(
                 torch, np, dp_cuda, dp_screen, gs, scorer, genome, screen
             )
+            multi_err = max(multi_err, multi_lanes_vs_plain(
+                torch, np, dp_cuda, dp_screen, scorer, genome))
+            multi_shape_rows = multi_lane_times(
+                torch, np, dp_cuda, probes, scorer, genome, multi_regs)
+            for L, c in lane_sass(dp_cuda, "screen_multi").items():
+                log(f"[multi lanes] SASS of screen_multi_kernel<20, {L}>: {c['total']} "
+                    f"instructions; steady loop {c['loop']} with {c['loop_VIADDMNMX']} "
+                    f"VIADDMNMX, {c['per_cell_chain']:.2f} per cell and chain; {c['loop_top']}")
             del genome
             phase_s["5 multi vs plain"] = time.perf_counter() - t0
 
@@ -1346,6 +1562,12 @@ def main() -> int:
     for name, (b_ms, b_by) in bounds.items():
         log(f"[bounds] {name}: {timed[name][0]:.4f} ms against a bound of {b_ms:.4f} ms "
             f"({b_by}): {100 * b_ms / timed[name][0]:.2f} % of the bound")
+
+    for label, row in multi_shape_rows.items():
+        b_ms, b_by = probes.bound_ms(*row["work"], peak)
+        L = row["launcher"]
+        log(f"[bounds] screen_multi {label}: launcher L={L} {row[L]:.5f} ms against a bound "
+            f"of {b_ms:.5f} ms ({b_by}): {100 * b_ms / row[L]:.2f} % of the bound")
 
     log("[phases] " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
     log(smi)

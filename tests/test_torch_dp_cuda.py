@@ -1,5 +1,5 @@
-"""The CUDA screen kernels (dual-chain, each lane count of its lane
-split, and multi-guide) against their plain PyTorch versions, bit for
+"""The CUDA screen kernels (dual-chain and multi-guide, each lane count
+of their lane split) against their plain PyTorch versions, bit for
 bit, on the card.  Skipped where torch
 sees no CUDA device; run on the GPU machine with
 ``python -m pytest tests/test_torch_dp_cuda.py``."""
@@ -77,17 +77,40 @@ def test_long_query_raises_on_cuda(cuda):
         )
 
 
-@pytest.mark.parametrize(
-    "Q,window,step,G,pam_gate,emit_ranges",
-    [(1, 41, 13, 1, True, True), (20, 1000, 973, 4, True, True),
-     (20, 64, 64, 3, False, False), (24, 1003, 980, 17, True, True),
-     (48, 128, 128, 5, False, False), (48, 2500, 2445, 2, True, True)],
-)
+INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
+
+
+def _multi_cases():
+    """The launcher's cases; then each L <= Q of the multi-guide kernel at
+    the lane split's edge Qs (G 1/4/17 in turn, ranges on and off in
+    turn); then slot batches (B 8192 x T 64/128, flattened, gate and
+    ranges off) at G 1 and 4 for each L."""
+    cases = [(1, 41, 13, 1, True, True, None), (20, 1000, 973, 4, True, True, None),
+             (20, 64, 64, 3, False, False, None), (24, 1003, 980, 17, True, True, None),
+             (48, 128, 128, 5, False, False, None), (48, 2500, 2445, 2, True, True, None)]
+    k = 0
+    for Q, (window, step, gate) in LANE_GRIDS.items():
+        for L in (L for L in dp_cuda.MULTI_LANES if L <= Q):
+            cases.append((Q, window, step, (1, 4, 17)[k % 3], gate, k % 2 == 0, L))
+            k += 1
+    for T in (64, 128):
+        for G in (1, 4):
+            cases += [(20, T, T, G, False, False, L) for L in dp_cuda.MULTI_LANES]
+    return cases
+
+
+@pytest.mark.parametrize("Q,window,step,G,pam_gate,emit_ranges,lanes", _multi_cases())
 def test_multi_kernel_matches_plain_version(cuda, Q, window, step, G, pam_gate,
-                                            emit_ranges):
-    rng = np.random.default_rng(Q * 7919 + window + G)
+                                            emit_ranges, lanes):
+    """``lanes`` None = the launcher's table; else ``_screen_multi_lanes``.
+    Windows of ``step == window`` are a slot batch of 8,192 rows; the
+    others' last windows run past the genome's end.  With two guides or
+    more the first two thresholds are INT32_MIN and INT32_MAX."""
+    rng = np.random.default_rng(Q * 7919 + window + G + 31 * (lanes or 0))
+    slots = step == window and window in (64, 128) and lanes is not None
+    size = 8192 * window if slots else 200_000
     genome = torch.from_numpy(
-        rng.integers(0, 64, size=200_000, dtype=np.uint8)
+        rng.integers(0, 16 if slots else 64, size=size, dtype=np.uint8)
     ).to(cuda)
     qvals = rng.integers(1, 16, size=(G, 2, Q)).astype(np.int32)
     n = (genome.numel() - 1) // step + 1  # the last windows run past the end
@@ -96,16 +119,23 @@ def test_multi_kernel_matches_plain_version(cuda, Q, window, step, G, pam_gate,
     best0, _ = screen_multi_reference(genome, qvals, np.zeros(G, np.int32), **kw)
     mss = best0.float().quantile(0.7, dim=-1).amax(dim=-1).to(torch.int32)
     mss = mss.cpu().numpy() - np.arange(G, dtype=np.int32)  # one per guide
+    if lanes is not None and G >= 2:
+        mss[:2] = (INT32_MIN, INT32_MAX)
     launches = dp_cuda.launches["screen_multi"]
-    got = dp_cuda.screen_multi(genome, qvals, mss, **kw)
+    if lanes is None:
+        L = dp_cuda.screen_multi_default_lanes(Q, n, G, emit_ranges)
+        assert L in dp_cuda.MULTI_LANES and L <= Q
+        got = dp_cuda.screen_multi(genome, qvals, mss, **kw)
+    else:
+        got = dp_cuda._screen_multi_lanes(genome, qvals, mss, lanes=lanes, **kw)
     torch.cuda.synchronize()
     assert dp_cuda.launches["screen_multi"] == launches + 1
-    want = screen_multi_reference(genome, qvals, mss, **kw)
+    want = screen_multi_reference(genome, qvals, mss, **dict(kw, emit_ranges=True))
     assert torch.equal(got[0], want[0])
     if emit_ranges:
         assert torch.equal(got[1], want[1])
     else:
-        assert got[1] is None and want[1] is None
+        assert got[1] is None
 
 
 def test_multi_long_query_raises_on_cuda(cuda):

@@ -147,6 +147,39 @@ class TestWrapper:
                 torch.zeros(64, dtype=torch.uint8), qvals, mss, **self.KW
             )
 
+    def test_lanes_route_cpu_tensors_to_the_plain_version(self):
+        """``_screen_multi_lanes`` on a CPU tensor runs the plain version
+        and launches nothing: the lane count only matters on the card."""
+        Q, lanes = 9, 4
+        rng = np.random.default_rng(10 + Q + lanes)
+        qvals = _qvals(rng, Q)
+        mss = np.array([-(2**31), 100, 2**31 - 1], np.int32)
+        genome = torch.from_numpy(rng.integers(0, 64, size=300, dtype=np.uint8))
+        kw = dict(self.KW, step=20, n_windows=12, window=30, pam_gate=True)
+        launches = dict(dp_cuda.launches)
+        got = dp_cuda._screen_multi_lanes(genome, qvals, mss, lanes=lanes, **kw)
+        want = port_dp.screen_multi_reference(genome, qvals, mss, **kw)
+        assert dp_cuda.launches == launches
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+    @pytest.mark.parametrize("Q,lanes", [(8, 3), (8, 8), (8, -1), (3, 4), (1, 2), (20, 0)])
+    def test_lanes_rejects_what_the_library_is_not_built_for(self, Q, lanes):
+        """An L outside ``MULTI_LANES`` or an L over Q: refused before any
+        route, on any device."""
+        with pytest.raises(ValueError, match="lanes must be"):
+            dp_cuda._screen_multi_lanes(
+                torch.zeros(64, dtype=torch.uint8), np.ones((1, 2, Q)), np.zeros(1),
+                lanes=lanes, **self.KW
+            )
+
+    def test_prepared_launch_needs_a_cuda_tensor(self):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            dp_cuda._screen_multi_launcher(
+                torch.zeros(64, dtype=torch.uint8), np.ones((1, 2, 4)), np.zeros(1),
+                **self.KW
+            )
+
     def test_rejects_other_devices(self):
         genome = torch.zeros(64, dtype=torch.uint8, device="meta")
         with pytest.raises(ValueError, match="unsupported device"):
@@ -298,6 +331,28 @@ class TestContigMultiScreen:
                                               self.DQS, self.MSS) == []
 
 
+@pytest.fixture(scope="module")
+def slot_case():
+    """One slot batch (B 1024 x T 64, full-length random ACGTN rows), three
+    guides of Q 20 with their own thresholds, and the JAX Pallas slot
+    screen's flags for it (interpret mode): ``(tmasks, qvals, mss, flags
+    [G, B])``."""
+    rng = np.random.default_rng(77)
+    T = 64
+    seqs = rng.choice(np.frombuffer(b"ACGTN", np.uint8), (B, T))
+    tmasks = TARGET_MASK_TABLE[seqs].astype(np.uint8)
+    qs = ["".join(rng.choice(list("ACGT"), 20)) for _ in range(G)]
+    qvals = np.stack(
+        [np.stack([encode_query(q), encode_query(revcomp(q))]) for q in qs]
+    ).astype(np.int32)
+    mss = np.array([300, 600, 900], np.int32)
+    packed = jax_gs._slot_flags_multi(
+        jnp.asarray(qvals), jnp.asarray(tmasks), jnp.full((B,), T, jnp.int32),
+        jnp.asarray(mss), Q=20, G=G, use_pallas=True, interpret=True, **SKW
+    )
+    return tmasks, qvals, mss, jax_gs._unpack_flag_bits(np.asarray(packed), B)
+
+
 class TestSlotFlagsMulti:
     def _batch(self, rng, n, T):
         tmasks = np.zeros((n, T), np.uint8)
@@ -332,6 +387,23 @@ class TestSlotFlagsMulti:
         direct = port_gs._slot_flags_multi(SCORER, torch.from_numpy(tmasks), qvals, mss)
         np.testing.assert_array_equal(direct.numpy(), np.asarray(packed))
         assert got.shape == (G, B) and got.any() and not got.all()
+
+    def test_lane_slot_flags_match_pallas_interpret(self, slot_case):
+        """The slot flags of the plain version that ``_screen_multi_lanes``
+        runs on the CPU equal the JAX Pallas slot screen's: the flattened
+        batch, gate and ranges off, each guide's best of both chains
+        against its own min score.  The card tests hold each L of the
+        kernel against the same plain version."""
+        tmasks, qvals, mss, want = slot_case
+        n, T = tmasks.shape
+        best, ranges = dp_cuda._screen_multi_lanes(
+            torch.from_numpy(tmasks.reshape(-1)), qvals, mss, lanes=2, base0=0,
+            step=T, n_windows=n, window=T, pam_gate=False, emit_ranges=False, **SKW
+        )
+        assert ranges is None
+        flags = (best >= torch.from_numpy(mss).reshape(-1, 1, 1)).any(dim=1).numpy()
+        np.testing.assert_array_equal(flags, want)
+        assert flags.any() and not flags.all()
 
     def test_superset_of_length_honouring_scores(self):
         """Slot lengths are ignored: the flags cover every flag the
