@@ -1,6 +1,7 @@
-// The glocal-DP window screen's device core for NVIDIA Hopper (sm_90a),
-// shared by screen_dual.cu (one guide) and screen_multi.cu (G guides and
-// the variant pass's slot batches).
+// The glocal-DP screen's device core for NVIDIA Hopper (sm_90a), shared
+// by screen_dual.cu (one guide), screen_multi.cu (G guides and the
+// variant pass's slot batches) and screen_rows.cu (length-masked rows,
+// one chain per lane group: Lane's kRows and kStride).
 //
 // One window's two chains (chain A = the DP query, chain B = its reverse
 // complement) over the same staged genome bytes.  Per byte: bits 0-3 =
@@ -36,6 +37,14 @@
 //   alternate too (both sets initialised, a guarded tail) cost L 1 30
 //   registers and 0.2 SASS instructions per cell and chain in the steady
 //   loop, and made no slot batch faster (PERF.md section 6).
+// - Rows (kRows: one chain per lane group): a row's bytes are its own,
+//   n_cols of them, and every lane of a warp runs the steps of the warp's
+//   longest row.  The byte of a column inside the row is read with bit 4
+//   set (an alignment may end there) and one past it as 0, and the
+//   chain's ends are gated on bit 4, so the columns a lane runs past its
+//   row's end score NEG_INF in the end-column state, as the row contract
+//   has it, at the cost of one OR per byte.  A table entry holds the one
+//   chain's bits (Bits, not Compat), half the shared memory and stores.
 
 #pragma once
 
@@ -170,44 +179,62 @@ __device__ __forceinline__ void column(const int (&cur)[R + 1], int (&nxt)[R + 1
   }
 }
 
-// One thread's share of a window: its lane's rows of both chains, in two
+// One thread's share of a window or row: its lane's rows of C chains (A
+// and B of a window; one chain of a row: kRows, see above), in two
 // register sets that alternate by column (no copies between columns), and
-// the end-column state its window keeps if it holds row Q.
-template <int Q, int L>
+// the end-column state its window keeps if it holds row Q.  kStride: the
+// distance between the lane's table entries of two target codes (1, or
+// the block's threads when every thread has a table of its own).
+template <int Q, int L, bool kRows = false, int kStride = 1>
 struct Lane {
   using S = Split<Q, L>;
   using Bits = typename S::Bits;
   static constexpr int R = S::R;
+  static constexpr int C = kRows ? 1 : 2;
+  // One table entry: both chains' bits, or a row's one chain's.
+  using Entry = typename std::conditional<kRows, Bits, Compat<Bits>>::type;
 
   int f[2][R + 1];
   int r[2][R + 1];
   int best_f, best_r, mn_f, mx_f, mn_r, mx_r;
   int k, T, t_in, delta, qgap, tgap, open, neg_end, min_score;
   const uint8_t* src;
-  const Compat<Bits>* tbl;
+  const Entry* tbl;
 
   // Lane k of window w (live: w < n_windows) with its block's table and
   // its guide's gated end and threshold, both in S' units.
   __device__ __forceinline__ void start(const Grid& g, int w, bool live, int lane,
-                                        const Compat<Bits>* table, int gated_end,
+                                        const Entry* table, int gated_end,
                                         int threshold) {
-    k = lane;
-    T = g.window;
     const long long first = g.base0 + static_cast<long long>(w) * g.step;
     const long long avail = g.genome_len - first;
-    t_in = !live || avail <= 0 ? 0 : (avail < T ? static_cast<int>(avail) : T);
-    src = g.genome + (t_in > 0 ? first : 0);
+    const int n_in =
+        !live || avail <= 0 ? 0 : (avail < g.window ? static_cast<int>(avail) : g.window);
+    begin(g.genome + (n_in > 0 ? first : 0), n_in, g.window, lane, table, g.match,
+          g.mismatch, g.qgap, g.tgap, g.pam_gate ? 0 : 48, gated_end, threshold);
+  }
+
+  // Lane k over the n_in bytes at `bytes`, for `steps` columns (warp
+  // uniform), with the gate bits `gate_open` read as set on every byte.
+  __device__ __forceinline__ void begin(const uint8_t* bytes, int n_in, int steps, int lane,
+                                        const Entry* table, int match, int mismatch,
+                                        int q_gap, int t_gap, int gate_open, int gated_end,
+                                        int threshold) {
+    k = lane;
+    T = steps;
+    t_in = n_in;
+    src = bytes;
     tbl = table;
-    delta = g.match - g.mismatch;
-    qgap = g.qgap;
-    tgap = g.tgap - g.mismatch;
-    open = g.pam_gate ? 0 : 48;
+    delta = match - mismatch;
+    qgap = q_gap;
+    tgap = t_gap - mismatch;
+    open = gate_open;
     neg_end = gated_end;
     min_score = threshold;
 #pragma unroll
     for (int i = 0; i <= R; ++i) {
       f[0][i] = (k * R + i) * tgap;  // S'[i,0]
-      r[0][i] = (k * R + i) * tgap;
+      if constexpr (C == 2) r[0][i] = (k * R + i) * tgap;
     }
     best_f = best_r = gated_end;
     mn_f = mn_r = T + 1;
@@ -215,11 +242,12 @@ struct Lane {
   }
 
   // The byte of step s's column, 0 past the window's bytes or off its
-  // columns (one unsigned compare covers both ends).
+  // columns (one unsigned compare covers both ends); a row's own bytes
+  // carry bit 4.
   __device__ __forceinline__ int load(int s) const {
     const int j = s - k;
     return static_cast<unsigned>(j - 1) < static_cast<unsigned>(t_in)
-               ? static_cast<int>(__ldg(src + (j - 1)))
+               ? static_cast<int>(__ldg(src + (j - 1))) | (kRows ? 16 : 0)
                : 0;
   }
 
@@ -235,7 +263,7 @@ struct Lane {
     if constexpr (L > 1) {
       // Lane k-1's bottom row of the step before: column j, row k*R.
       top_f = __shfl_up_sync(kFullMask, f[P][R], 1, L);
-      top_r = __shfl_up_sync(kFullMask, r[P][R], 1, L);
+      if constexpr (C == 2) top_r = __shfl_up_sync(kFullMask, r[P][R], 1, L);
     }
     const int gm = raw | open;  // gate bits read as open without the gate
     if (k == 0) {  // the glocal row 0
@@ -243,18 +271,22 @@ struct Lane {
       top_r = gm & 32 ? 0 : kNegGate;
     }
     if (kGuard && !on) return;
-    const Compat<Bits> cb = tbl[raw & 15];
-    column<R>(f[P], f[1 - P], top_f, cb.f, delta, qgap, tgap);
-    column<R>(r[P], r[1 - P], top_r, cb.r, delta, qgap, tgap);
+    const Entry cb = tbl[(raw & 15) * kStride];
+    if constexpr (kRows) {
+      column<R>(f[P], f[1 - P], top_f, cb, delta, qgap, tgap);
+    } else {
+      column<R>(f[P], f[1 - P], top_f, cb.f, delta, qgap, tgap);
+      column<R>(r[P], r[1 - P], top_r, cb.r, delta, qgap, tgap);
+    }
     // Row Q's lane keeps the window's end-column state; the others'
     // copies are never stored.
     keep_end(gm & 16 ? f[1 - P][S::rLast] : neg_end, j, min_score, best_f, mn_f, mx_f);
-    keep_end(r[1 - P][S::rLast], j, min_score, best_r, mn_r, mx_r);
+    if constexpr (C == 2) keep_end(r[1 - P][S::rLast], j, min_score, best_r, mn_r, mx_r);
     if constexpr (kCopy) {
 #pragma unroll
       for (int i = 0; i <= R; ++i) {
         f[P][i] = f[1 - P][i];
-        r[P][i] = r[1 - P][i];
+        if constexpr (C == 2) r[P][i] = r[1 - P][i];
       }
     }
   }

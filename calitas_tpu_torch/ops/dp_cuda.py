@@ -52,6 +52,10 @@ G_MAX = 65535
 DUAL_LANES = (1, 2)
 #: lanes per window the multi-guide kernel is built for (csrc/screen_multi.cu)
 MULTI_LANES = (1, 2, 4)
+#: lanes per row and chain the row kernel is built for
+#: (csrc/screen_rows.cu::built), by mode: per-row queries (True) or one
+#: shared query (False)
+ROWS_LANES = {True: (1, 2, 4), False: (1, 2)}
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {
@@ -163,13 +167,18 @@ def _bind(lib: ctypes.CDLL, name: str) -> None:
                    lib.calitas_screen_dual_default_lanes):
             fn.restype = i32
     elif name == "screen_rows":
-        lib.calitas_screen_rows.argtypes = [
+        rows = [
             vp, ll, i32, i32, vp,  # tmasks, ld, T, n_rows, lengths
             ctypes.POINTER(i32), vp, i32,  # query (host), qrows, q_len
             vp, i32, i32, i32, i32,  # min_scores, scores
             vp, vp, vp,  # best, ranges, stream
         ]
-        lib.calitas_screen_rows.restype = i32
+        lib.calitas_screen_rows.argtypes = rows
+        lib.calitas_screen_rows_lanes.argtypes = [*rows, i32]  # lanes
+        lib.calitas_screen_rows_default_lanes.argtypes = [i32, i32, i32]
+        for fn in (lib.calitas_screen_rows, lib.calitas_screen_rows_lanes,
+                   lib.calitas_screen_rows_default_lanes):
+            fn.restype = i32
     elif name == "probes":
         for fn in (lib.calitas_ceiling_probe, lib.calitas_peak_probe):
             fn.argtypes = [vp, i32, ll, i32, i32, vp, vp]  # tcols, T, N, Q, bias, out, stream
@@ -234,7 +243,8 @@ def _check_q_len(Q: int, what: str):
         raise NotImplementedError(
             f"CUDA {what} screen takes queries up to {Q_MAX} bases (got {Q}): "
             "callers route longer ones to the plain screen (uses_kernel); "
-            "a kernel form is ROADMAP Queue 2 item 6"
+            "a kernel form is open work (ROADMAP Queue 2, device programs "
+            "outside Pallas, item 3)"
         )
 
 
@@ -565,8 +575,55 @@ def screen_rows(
     (one query shared by every row: ``_kernel``'s contract) or ``[2, B,
     Q]`` (each row's chain-A and chain-B queries: the pair screen).
 
-    CUDA tensors launch the kernel on the current stream; CPU tensors run
-    the plain version.  Q > 48 on CUDA raises NotImplementedError."""
+    CUDA tensors launch the kernel on the current stream, with the lanes
+    per row and chain the kernel's table gives the mode, Q and B
+    (:func:`screen_rows_default_lanes`); CPU tensors run the plain
+    version.  On CUDA, Q > 48 raises NotImplementedError, and a score set
+    whose end shift ``Q * mismatch`` (or NEG_INF shifted by it) leaves
+    int32 raises RuntimeError: the kernel refuses it, as the dual kernel
+    does, and nothing falls back."""
+    return _screen_rows(qmasks, tmasks, lengths, min_scores, None, dict(
+        match=match, mismatch=mismatch, qgap=qgap, tgap=tgap))
+
+
+def rows_lanes(q_len: int, per_row: bool) -> tuple:
+    """The lane counts the row kernel is built for at query length
+    ``q_len``, with a query per row (``per_row``) or one shared."""
+    return tuple(L for L in ROWS_LANES[bool(per_row)] if L <= q_len)
+
+
+def _check_rows_lanes(lanes, q_shape: tuple):
+    if lanes is None:
+        return
+    Q, per_row = q_shape[-1], len(q_shape) == 3
+    built = rows_lanes(Q, per_row)
+    if lanes not in built:
+        raise ValueError(f"lanes must be one of {built} at Q={Q} "
+                         f"({'per-row' if per_row else 'shared'} query), got {lanes}")
+
+
+def _screen_rows_lanes(qmasks, tmasks: torch.Tensor, lengths: torch.Tensor,
+                       min_scores=None, *, lanes: int, **kw):
+    """:func:`screen_rows` with ``lanes`` lanes per row and chain (one of
+    :func:`rows_lanes`) instead of the table's choice, for timing and
+    checking each lane count of the kernel.  Counts as a ``screen_rows``
+    launch.  CPU tensors run the plain version."""
+    _check_rows_lanes(lanes, tuple(qmasks.shape))
+    return _screen_rows(qmasks, tmasks, lengths, min_scores, lanes, kw)
+
+
+def screen_rows_default_lanes(q_len: int, n_rows: int, per_row: bool) -> int:
+    """The lanes per row :func:`screen_rows` launches ``n_rows`` rows of a
+    ``q_len``-base query with, one query per row (``per_row``) or one
+    shared (the kernel's compile-time table).  Builds the kernels."""
+    _check_q_len(q_len, "row")
+    return library("screen_rows").calitas_screen_rows_default_lanes(
+        q_len, n_rows, int(bool(per_row)))
+
+
+def _rows_args(qmasks, tmasks, lengths, min_scores):
+    """Checks a row screen's arguments; returns ``(per_row, q_np)``: the
+    mode and the masks as a host array where they came as one."""
     if tmasks.dtype != torch.uint8 or tmasks.dim() != 2:
         raise ValueError(
             f"tmasks must be a [B, T] uint8 tensor, got {tmasks.dtype} "
@@ -574,10 +631,9 @@ def screen_rows(
         )
     if not tmasks.is_contiguous():
         raise ValueError("tmasks must be contiguous")
-    dev = tmasks.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    B, T = tmasks.shape
+    if tmasks.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {tmasks.device}")
+    B = tmasks.shape[0]
     q_np = None if isinstance(qmasks, torch.Tensor) else np.asarray(qmasks)
     q_shape = tuple(qmasks.shape)
     per_row = len(q_shape) == 3
@@ -592,9 +648,17 @@ def screen_rows(
         raise ValueError(f"lengths must be [{B}], got {tuple(lengths.shape)}")
     if min_scores is not None and tuple(np.shape(min_scores)) != (B,):
         raise ValueError(f"min_scores must be [{B}], got {np.shape(min_scores)}")
-    kw = dict(match=match, mismatch=mismatch, qgap=qgap, tgap=tgap)
-    if dev.type == "cpu":
-        return screen_rows_reference(qmasks, tmasks, lengths, min_scores, **kw)
+    return per_row, q_np
+
+
+def _rows_prepared(qmasks, tmasks, lengths, min_scores, per_row, q_np, lanes, kw):
+    """The outputs of one row-screen launch on CUDA tensors, allocated,
+    and the lengths, masks and thresholds on the card: ``(launch, (best,
+    ranges))``, where ``launch()`` launches the kernel into those outputs
+    on the current stream, raises on a refused launch and counts it."""
+    dev = tmasks.device
+    B, T = tmasks.shape
+    q_shape = tuple(qmasks.shape)
     C, Q = q_shape[0], q_shape[-1]
     if C != (2 if per_row else 1):
         raise ValueError(
@@ -607,9 +671,6 @@ def screen_rows(
         None if min_scores is None
         else torch.empty((C, 2, B), dtype=torch.int32, device=dev)
     )
-    if B == 0:
-        return best, ranges
-    lib = library("screen_rows")
     with torch.cuda.device(dev):
         ln = _on_device(lengths, dev, torch.int32, "lengths")
         ms = None if min_scores is None else _on_device(
@@ -623,16 +684,54 @@ def screen_rows(
                 q_np = qmasks.cpu().numpy()
                 _check_masks(q_np)
             query = (ctypes.c_int * Q)(*(int(v) for v in q_np.reshape(-1)))
-        err = lib.calitas_screen_rows(
+
+    def launch():
+        lib = library("screen_rows")
+        args = (
             tmasks.data_ptr(), T, T, B, ln.data_ptr(), query,
             None if qrows is None else qrows.data_ptr(), Q,
-            None if ms is None else ms.data_ptr(), match, mismatch, qgap,
-            tgap, best.data_ptr(), None if ranges is None else ranges.data_ptr(),
+            None if ms is None else ms.data_ptr(), kw["match"], kw["mismatch"],
+            kw["qgap"], kw["tgap"], best.data_ptr(),
+            None if ranges is None else ranges.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(lib, err, "screen_rows")
-    _count_launch("screen_rows")
-    return best, ranges
+        with torch.cuda.device(dev):
+            if lanes is None:
+                err = lib.calitas_screen_rows(*args)
+            else:
+                err = lib.calitas_screen_rows_lanes(*args, lanes)
+        _raise_on(lib, err, "screen_rows")
+        _count_launch("screen_rows")
+
+    return launch, (best, ranges)
+
+
+def _screen_rows(qmasks, tmasks, lengths, min_scores, lanes, kw):
+    per_row, q_np = _rows_args(qmasks, tmasks, lengths, min_scores)
+    if tmasks.device.type == "cpu":
+        return screen_rows_reference(qmasks, tmasks, lengths, min_scores, **kw)
+    launch, out = _rows_prepared(qmasks, tmasks, lengths, min_scores, per_row, q_np,
+                                 lanes, kw)
+    if tmasks.shape[0] > 0:
+        launch()
+    return out
+
+
+def _screen_rows_launcher(qmasks, tmasks: torch.Tensor, lengths: torch.Tensor,
+                          min_scores=None, *, lanes=None, **kw):
+    """A prepared :func:`screen_rows` (``lanes`` None) or
+    :func:`_screen_rows_lanes` call on a CUDA tensor, for timing: the
+    lengths, masks and thresholds go to the card and the outputs are
+    allocated once, here; the returned ``launch()`` only launches, into
+    those outputs, on the current stream, so it can be captured in a CUDA
+    graph.  Returns ``(launch, (best, ranges))``."""
+    if tmasks.device.type != "cuda":
+        raise ValueError(f"a prepared launch needs a CUDA tensor, got {tmasks.device}")
+    _check_rows_lanes(lanes, tuple(qmasks.shape))
+    per_row, q_np = _rows_args(qmasks, tmasks, lengths, min_scores)
+    if tmasks.shape[0] < 1:
+        raise ValueError("a prepared launch needs at least one row")
+    return _rows_prepared(qmasks, tmasks, lengths, min_scores, per_row, q_np, lanes, kw)
 
 
 class CudaScreenKernel(ScreenKernel):

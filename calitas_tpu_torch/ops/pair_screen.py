@@ -15,7 +15,9 @@ one per-row-query launch of the CUDA row screen
 CPU and, on CUDA, for queries longer than the kernel takes.  Every chunk
 launches before any resolves, each with one pinned non-blocking
 readback.  The reference pads each chunk to a power of two for XLA's
-per-shape compiles; the port needs no padding.
+per-shape compiles; the port needs no padding.  Each chunk's shape (rows,
+slot, Q, ranges, route) is logged at DEBUG on the
+``calitas_tpu_torch.screen`` logger.
 """
 
 from __future__ import annotations
@@ -131,6 +133,10 @@ class PairScreen:
                         np.asarray([int(min_scores[i]) for i in rows.tolist()],
                                    dtype=np.int32), dev,
                     )
+                dp_cuda.logger.debug(
+                    "Pair screen chunk: %d rows, slot %d, Q %d, ranges %s, %s", B, slot,
+                    Q, ms is not None, "CUDA kernel" if kernel else "plain screen",
+                )
                 best, ranges = screen(
                     dp_cuda.to_device(qv, dev), dp_cuda.to_device(tm, dev),
                     dp_cuda.to_device(ln, dev), ms, **skw,

@@ -272,10 +272,10 @@ def roofline(device, *, reps: int = 20, seed: int = 0) -> dict:
     the dual kernel and the multi-guide kernel at G 4; the variant pass's
     slot batch (8,192 rows x 64 columns, flattened, one guide, gate and
     ranges off, launches timed as a CUDA graph) for the multi-guide
-    kernel; 41,238 ragged rows
-    x 1000 columns, one shared Q 20 query for the row kernel, and 20,000
-    rows x slot 256, per-row queries, both chains, ranges on.  Raises
-    ValueError when ``device`` is not CUDA."""
+    kernel; 41,238 ragged rows x 1000 columns, one shared Q 20 query, and
+    20,000 rows x slot 256, per-row queries, both chains, ranges on, for
+    the row kernel (both timed as CUDA graphs).  Raises ValueError when
+    ``device`` is not CUDA."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"roofline needs a CUDA device, got {device}")
@@ -342,16 +342,16 @@ def roofline(device, *, reps: int = 20, seed: int = 0) -> dict:
     lens = rng.integers(0, T_rows + 1, B).astype(np.int32)
     ln = torch.from_numpy(lens).to(device)
     q = rng.choice(np.array([1, 2, 4, 8], np.uint8), (1, Q))
-    ms = cuda_time_ms(lambda: dp_cuda.screen_rows(q, tm, ln, **sk), reps)
+    launch, _out = dp_cuda._screen_rows_launcher(q, tm, ln, **sk)
     out["kernels"]["screen_rows shared"] = _row(
-        ms, rows_work(lens, Q, 1, False, False), peak)
+        graph_times_ms({0: launch})[0], rows_work(lens, Q, 1, False, False), peak)
     B, slot = 20_000, 256
     tm = torch.randint(1, 16, (B, slot), generator=gen, device=device, dtype=torch.uint8)
     lens = rng.integers(0, slot + 1, B).astype(np.int32)
     ln = torch.from_numpy(lens).to(device)
     qd = torch.from_numpy(rng.choice(np.array([1, 2, 4, 8], np.uint8), (2, B, Q))).to(device)
     ms_rows = torch.full((B,), min_score, dtype=torch.int32, device=device)
-    ms = cuda_time_ms(lambda: dp_cuda.screen_rows(qd, tm, ln, ms_rows, **sk), reps)
+    launch, _out = dp_cuda._screen_rows_launcher(qd, tm, ln, ms_rows, **sk)
     out["kernels"]["screen_rows per-row"] = _row(
-        ms, rows_work(lens, Q, 2, True, True), peak)
+        graph_times_ms({0: launch})[0], rows_work(lens, Q, 2, True, True), peak)
     return out

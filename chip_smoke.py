@@ -11,8 +11,10 @@ Phases, each raising on failure:
 2. Build: compiles the CUDA kernels from ``calitas_tpu_torch/csrc`` (the
    three screens and the roofline probes), one nvcc per source, started
    together, and prints the build time; every ``screen_dual`` instantiation
-   (Q 1-48 x lanes 1/2, L <= Q) and every ``screen_multi`` one (Q 1-48 x
-   lanes 1/2/4, L <= Q) must be there and none may spill.
+   (Q 1-48 x lanes 1/2, L <= Q), every ``screen_multi`` one (Q 1-48 x
+   lanes 1/2/4, L <= Q) and every ``screen_rows`` one (Q 1-48 x the
+   lanes ``dp_cuda.rows_lanes`` lists in each mode) must be there and
+   none may spill.
 3. Kernel vs plain: on a seeded 40 Mb annotated genome with planted guide
    sites, the kernel's best scores and end-column ranges must equal its
    plain PyTorch version bit for bit (query lengths 20/24/48, PAM gate on
@@ -72,8 +74,24 @@ Phases, each raising on failure:
    its plain PyTorch version bit for bit in shared-query mode (B 8192 x T
    64/128/512, and B 41,238 x T 1000 with ragged lengths, at Q 1/20/24/48)
    and in per-row mode (B 20,000 x slots 64/128/256, lengths 0..slot,
-   ranges on and off); times both at B 41,238 x T 1000, Q 20 (shared) and
-   20,000 x 256 (per-row).
+   ranges on and off); then each lane count L (``_screen_rows_lanes``)
+   in both modes, ranges on and off, at Q 1/2/20/21/23/24/47/48 on 4,099
+   rows whose lengths mix 0, 1, L - 1, T and past T inside a warp, min
+   scores at INT32_MIN, INT32_MAX and NEG_INF; at Q 20, each L's time,
+   the launcher's choice and the plain version's time at (a) per-row
+   20,000 x slot 256, lengths 0..256, ranges on, (b) pairs20k's chunks
+   (2,870 x 128, lengths 100-128; 7,130 x 256, lengths 129-200; ranges
+   off; also at Q 24), (c) a2r20k's chunks (5,000 rows of 201 bases in
+   slot 256, ranges on; also at Q 24), (d) shared query, 41,238 x 1000,
+   lengths 0..1000, and (e) per-row chunks at the lane table's row-count
+   bounds and other slots (4,000 / 5,500 x 128, 6,000 x 512, 12,000 x
+   256 / 1024, 32,768 x 128), timed as phase 5 times its shapes
+   (``launcher_times``), with each L's registers and spills; there every
+   L's outputs and the wrapper's must equal the plain version's bit for
+   bit; the same times at every Q from 2 to 48 (every L's outputs equal;
+   the launcher's L must be within 3 % of the fastest at every shape);
+   the SASS instruction counts of ``screen_rows_kernel<20, L, true>``.
+   After phase 13, each shape's bound and share.
 10. Golden configs 1 (PairwiseAlignSequences) and 2 (AlignToReference)
    through the port's CLI with ``--engine gpu`` and ``--engine host``: the
    tables must equal the goldens, the row kernel must have launched and
@@ -83,7 +101,9 @@ Phases, each raising on failure:
    all-hits (``-w 200 -d 4 -p 1 -O 5``) at 20,000 loci on config 3's 40 Mb
    contig, each with config 3's guide and a 24-base 5'-PAM guide, on
    ``--engine gpu`` and ``--engine host``: the tables must be identical
-   and the finish pool must not break.  Prints both wall times.
+   and the finish pool must not break.  Prints both wall times and the
+   shape (rows, slot, Q, ranges) of each pair-screen launch of the gpu
+   runs, from the pair screen's DEBUG line per chunk.
 12. A guide whose DP query is 50 bases (over the kernels' 48) through
    SearchReference on config 2's 2 Mb contig on the card and with
    ``--device cpu``: the tables must be identical, the route must be
@@ -107,14 +127,16 @@ The line before the last is a JSON object describing the kernels (the
 launch counts are those of the main paths: phase 4 for the dual kernel,
 phases 6 and 7 for the multi-guide kernel, the gpu runs of phases 10 and
 11 for the row kernel, phase 13's roofline run for the probes; the row
-kernel's times are those of the list tools' per-row mode; each bound is
-that of the timed call's inputs); the last line is ``{"ok":
+kernel's times are those of the launcher's L at phase 9's shape (a), the
+list tools' per-row mode; each bound is that of the timed call's
+inputs); the last line is ``{"ok":
 true, "device": {...}}``.  Exits non-zero, without that line, when there
 is no CUDA device or the repository is missing.
 """
 
 from __future__ import annotations
 
+import collections
 import gzip
 import json
 import logging
@@ -163,27 +185,31 @@ def ptxas_summary(path: Path) -> str:
 
 def lane_ptxas(path: Path, kernel: str = "screen_dual_kernel") -> dict:
     """``{(Q, lanes): (registers, spill bytes)}`` of every ``kernel<Q, L>``
-    instantiation (``screen_dual_kernel`` or ``screen_multi_kernel``),
-    from ptxas's ``-v`` report."""
+    instantiation (``screen_dual_kernel`` or ``screen_multi_kernel``), or
+    ``{(Q, lanes, per_row): ...}`` of every ``screen_rows_kernel<Q, L,
+    per_row>``, from ptxas's ``-v`` report."""
     import re
 
     out = {}
     for entry in path.read_text().split("Compiling entry function")[1:]:
-        m = re.search(rf"{kernel}ILi(\d+)ELi(\d+)EE", entry)
+        m = re.search(rf"{kernel}ILi(\d+)ELi(\d+)E(?:Lb([01])E)?E", entry)
         regs = re.search(r"Used (\d+) registers", entry)
         if not m or not regs:
             continue
         spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", entry))
-        out[int(m[1]), int(m[2])] = (int(regs[1]), spill)
+        key = (int(m[1]), int(m[2])) + (() if m[3] is None else (m[3] == "1",))
+        out[key] = (int(regs[1]), spill)
     return out
 
 
-def lane_sass(dp_cuda, source: str = "screen_dual", Q: int = 20) -> dict:
-    """Instruction counts of ``<source>_kernel<Q, L>`` for each L, from
-    its SASS (cuobjdump): the whole kernel, and its steady loop (the
-    backward branch whose body holds the most DPX add+max, VIADDMNMX)
-    with that loop's instructions per DP cell and chain (each cell of a
-    chain runs two VIADDMNMX)."""
+def lane_sass(dp_cuda, source: str = "screen_dual", Q: int = 20, extra: str = "") -> dict:
+    """Instruction counts of ``<source>_kernel<Q, L>`` (with ``extra``,
+    the mangled further template arguments: ``"Lb1E"`` for
+    ``screen_rows_kernel<Q, L, true>``) for each L, from its SASS
+    (cuobjdump): the whole kernel, and its steady loop (the backward
+    branch whose body holds the most DPX add+max, VIADDMNMX) with that
+    loop's instructions per DP cell and chain (each cell of a chain runs
+    two VIADDMNMX)."""
     import re
     import shutil
     from collections import Counter
@@ -194,7 +220,7 @@ def lane_sass(dp_cuda, source: str = "screen_dual", Q: int = 20) -> dict:
                           check=True).stdout
     out = {}
     for body in re.split(r"\n\s*Function : ", sass)[1:]:
-        m = re.match(rf".*{source}_kernelILi{Q}ELi(\d+)EE", body.split("\n", 1)[0])
+        m = re.match(rf".*{source}_kernelILi{Q}ELi(\d+)E{extra}E", body.split("\n", 1)[0])
         if not m:
             continue
         ins = [(int(a, 16), op.split(".")[0], rest) for a, op, rest in re.findall(
@@ -638,20 +664,32 @@ def multi_shapes(torch, np, genome, scorer, Q: int, rng) -> list:
     return out
 
 
+def launcher_times(probes, launchers: dict, outputs: dict | None = None) -> dict:
+    """``{key: ms}``: each of ``launchers`` (``{key: () -> (launch,
+    outputs)}``, a new prepared launch per call) timed together by
+    ``probes.graph_times_ms`` (CUDA graphs of about 2 ms each, the keys
+    replayed in turn within each of five trials), twice, each time with
+    new outputs and graphs; each key's least time.  ``outputs``, when
+    given, receives each key's outputs as the second round's graphs left
+    them."""
+    best = {}
+    for _ in range(2):
+        made = {key: make() for key, make in launchers.items()}
+        for key, t in probes.graph_times_ms({k: m[0] for k, m in made.items()}).items():
+            best[key] = min(best.get(key, t), t)
+        if outputs is not None:
+            outputs.update({key: m[1] for key, m in made.items()})
+    return best
+
+
 def multi_shape_times(dp_cuda, probes, shape, lanes) -> dict:
     """``{L: ms}``: one multi-guide launch at ``shape`` (from
     :func:`multi_shapes`) with each L of ``lanes``, timed together by
-    ``probes.graph_times_ms`` (CUDA graphs of about 2 ms each, the L's
-    replayed in turn within each of five trials), twice, each time with
-    new outputs and graphs; each L's least time."""
+    :func:`launcher_times`."""
     _label, g, qv, mss, kw = shape
-    best = {}
-    for _ in range(2):
-        launches = {L: dp_cuda._screen_multi_launcher(g, qv, mss, lanes=L, **kw)[0]
-                    for L in lanes}
-        for L, t in probes.graph_times_ms(launches).items():
-            best[L] = min(best.get(L, t), t)
-    return best
+    return launcher_times(probes, {
+        L: (lambda L=L: dp_cuda._screen_multi_launcher(g, qv, mss, lanes=L, **kw))
+        for L in lanes})
 
 
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
@@ -969,14 +1007,16 @@ def variants_at_scale(torch, np, dp_cuda, tmp: Path) -> None:
         raise AssertionError("the variant pass never launched the multi-guide kernel")
 
 
-def rows_vs_plain(torch, np, dp_cuda, dp_screen, scorer, device):
-    """Phase 9: returns (max_abs_err over all cases, {mode: (kernel ms,
-    plain ms)}, {mode: row lengths of the timed call})."""
+def rows_vs_plain(torch, np, dp_cuda, dp_screen, scorer, device) -> int:
+    """Phase 9, first part: the row screen through its wrapper (the
+    launcher's L) against the plain version, bit for bit, in shared-query
+    mode (B 8192 x T 64/128/512, B 41,238 x T 1000 ragged) and per-row
+    mode (B 20,000 x slots 64/128/256, lengths 0..slot, ranges on and
+    off); returns the max_abs_err."""
     rng = np.random.default_rng(9)
     sk = dict(match=scorer.match_score, mismatch=scorer.mismatch_score,
               qgap=scorer.query_gap_score, tgap=scorer.target_gap_score)
     acgt = np.array([1, 2, 4, 8], np.uint8)
-    rc_mask = np.array([0, 8, 4, 12, 2, 10, 6, 14, 1, 9, 5, 13, 3, 11, 7, 15], np.uint8)
 
     def targets(B, T, query_of):
         """[B, T] ACGT masks with a copy of row b's query ``query_of(b)``
@@ -991,21 +1031,7 @@ def rows_vs_plain(torch, np, dp_cuda, dp_screen, scorer, device):
             tm[b, p : p + len(q)] = q
         return torch.from_numpy(tm).to(device)
 
-    def compare(what, qmasks, tm, ln, ms):
-        got = dp_cuda.screen_rows(qmasks, tm, ln, ms, **sk)
-        want = dp_screen.screen_rows_reference(qmasks, tm, ln, ms, **sk)
-        torch.cuda.synchronize()
-        pairs = [(got[0], want[0])] + ([(got[1], want[1])] if ms is not None else [])
-        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) for g, w in pairs)
-        same = all(torch.equal(g, w) for g, w in pairs) and (ms is not None or got[1] is None)
-        top = int(got[0].max())
-        log(f"[rows] {what} bit-identical={same} max_abs_err={err} best max {top}")
-        if not same:
-            raise AssertionError(f"row kernel != plain: {what}")
-        return err
-
     max_err = 0
-    main_shared = main_rows = None
     for B, T, ragged in ((8192, 64, False), (8192, 128, True), (8192, 512, False),
                          (41_238, 1000, True)):
         for Q in (1, 20, 24, 48):
@@ -1017,16 +1043,15 @@ def rows_vs_plain(torch, np, dp_cuda, dp_screen, scorer, device):
             if Q in (20, 48):
                 ms = torch.full((B,), scorer.match_score * Q - 4 * 122,
                                 dtype=torch.int32, device=device)
-            max_err = max(max_err, compare(
+            max_err = max(max_err, compare_rows(
+                torch, dp_cuda, dp_screen, sk,
                 f"shared B={B} T={T} Q={Q} ragged={ragged} ranges={ms is not None}",
                 q[None], tm, ln, ms))
-            if (B, T, Q) == (41_238, 1000, 20):
-                main_shared = (q[None], tm, ln)
     for T in (64, 128, 256):
         for k, Q in enumerate((1, 20, 24, 48)):
             B = 20_000
             qa = acgt[rng.integers(0, 4, (B, Q))]
-            qmasks = np.stack([qa, rc_mask[qa[:, ::-1]]])  # chain B: the revcomp
+            qmasks = np.stack([qa, np.asarray(RC_MASK, np.uint8)[qa[:, ::-1]]])  # revcomp
             tm = targets(B, T, lambda b: qa[b])
             ln = torch.from_numpy(rng.integers(0, T + 1, B).astype(np.int32)).to(device)
             ms = None
@@ -1035,28 +1060,228 @@ def rows_vs_plain(torch, np, dp_cuda, dp_screen, scorer, device):
                     (scorer.match_score * Q - rng.integers(0, 6, B) * 122).astype(np.int32)
                 ).to(device)
             qd = torch.from_numpy(np.ascontiguousarray(qmasks)).to(device)
-            max_err = max(max_err, compare(
+            max_err = max(max_err, compare_rows(
+                torch, dp_cuda, dp_screen, sk,
                 f"per-row B={B} slot={T} Q={Q} ranges={ms is not None}", qd, tm, ln, ms))
-            if (T, Q) == (256, 20):
-                ms = torch.full((B,), scorer.match_score * Q - 4 * 122,
-                                dtype=torch.int32, device=device)
-                main_rows = (qd, tm, ln, ms)
-    q, tm, ln = main_shared
-    times = {"shared": (
-        cuda_time_ms(torch, lambda: dp_cuda.screen_rows(q, tm, ln, **sk), 20),
-        cuda_time_ms(torch, lambda: dp_screen.screen_rows_reference(q, tm, ln, **sk), 3),
-    )}
-    qd, tm, ln, ms = main_rows
-    times["per-row"] = (
-        cuda_time_ms(torch, lambda: dp_cuda.screen_rows(qd, tm, ln, ms, **sk), 20),
-        cuda_time_ms(torch, lambda: dp_screen.screen_rows_reference(qd, tm, ln, ms, **sk), 3),
-    )
-    log(f"[rows] shared query, B 41238 x T 1000, Q 20, ragged: kernel "
-        f"{times['shared'][0]:.4f} ms, plain {times['shared'][1]:.4f} ms; per-row "
-        f"query, both chains, B 20000 x slot 256, Q 20, ranges on: kernel "
-        f"{times['per-row'][0]:.4f} ms, plain {times['per-row'][1]:.4f} ms")
-    return max_err, times, {"shared": main_shared[2].cpu().numpy(),
-                            "per-row": main_rows[2].cpu().numpy()}
+    return max_err
+
+
+RC_MASK = [0, 8, 4, 12, 2, 10, 6, 14, 1, 9, 5, 13, 3, 11, 7, 15]  # IUPAC complement
+
+
+def compare_rows(torch, dp_cuda, dp_screen, sk, what, qmasks, tm, ln, ms, lanes=None) -> int:
+    """One row-screen call (the launcher's L, or ``lanes``) against the
+    plain version; raises unless bit-identical; returns the max_abs_err."""
+    if lanes is None:
+        got = dp_cuda.screen_rows(qmasks, tm, ln, ms, **sk)
+    else:
+        got = dp_cuda._screen_rows_lanes(qmasks, tm, ln, ms, lanes=lanes, **sk)
+    want = dp_screen.screen_rows_reference(qmasks, tm, ln, ms, **sk)
+    err = same_rows(torch, got, want, f"{what}{'' if lanes is None else f' L={lanes}'}")
+    log(f"[rows] {what}{'' if lanes is None else f' L={lanes}'} bit-identical=True "
+        f"max_abs_err={err} best max {int(got[0].max())}")
+    return err
+
+
+def same_rows(torch, got, want, what: str) -> int:
+    """Row-screen outputs ``(best, ranges)`` against the plain version's;
+    raises unless bit-identical (ranges None in both or equal); returns
+    the max_abs_err."""
+    torch.cuda.synchronize()
+    if (got[1] is None) != (want[1] is None):
+        raise AssertionError(f"row kernel != plain: {what}: ranges {got[1] is None} "
+                             f"vs {want[1] is None}")
+    pairs = [(got[0], want[0])] + ([(got[1], want[1])] if want[1] is not None else [])
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) for g, w in pairs)
+    if not all(torch.equal(g, w) for g, w in pairs):
+        raise AssertionError(f"row kernel != plain: {what}, max_abs_err {err}")
+    return err
+
+
+ROW_LANE_CASES = (  # (Q, T): every L <= Q of each, both modes, against the plain version
+    (1, 64), (2, 100), (20, 128), (21, 256), (23, 201), (24, 256), (47, 128), (48, 1000),
+)
+ROW_LANE_B = 4099  # not a multiple of any block's row count
+
+
+def rows_lanes_vs_plain(torch, np, dp_cuda, dp_screen, scorer, device) -> int:
+    """Phase 9, second part: every lane count of the row kernel
+    (``_screen_rows_lanes``) in both modes against the plain version, bit
+    for bit, ranges on and off, at Q 1/2/20/21/23/24/47/48 on 4,099 rows whose
+    lengths mix 0, 1, L - 1, T, past T and random ones inside each warp,
+    with min scores at INT32_MIN and INT32_MAX beside ordinary ones;
+    returns the max_abs_err."""
+    rng = np.random.default_rng(39)
+    sk = dict(match=scorer.match_score, mismatch=scorer.mismatch_score,
+              qgap=scorer.query_gap_score, tgap=scorer.target_gap_score)
+    B = ROW_LANE_B
+    max_err = 0
+    for Q, T in ROW_LANE_CASES:
+        tm = torch.from_numpy(rng.integers(0, 16, (B, T), dtype=np.uint8)).to(device)
+        for per_row in (False, True):
+            q = rng.integers(1, 16, (2, B, Q) if per_row else (1, Q)).astype(np.uint8)
+            qd = torch.from_numpy(q).to(device) if per_row else q
+            for L in dp_cuda.rows_lanes(Q, per_row):
+                lens = rng.integers(0, T + 1, B)
+                # 32 rows in every 128 (a warp's at L 1) cycle through the edges
+                edge = np.array([0, 1, L - 1, T, T + 3])
+                for w0 in range(0, B, 128):
+                    n = min(32, B - w0)
+                    lens[w0 : w0 + n] = edge[np.arange(n) % len(edge)]
+                ln = torch.from_numpy(lens.astype(np.int32)).to(device)
+                best0, _ = dp_screen.screen_rows_reference(qd, tm, ln, **sk)
+                ms = (best0.amax(0).cpu().numpy() - rng.integers(0, 300, B)).astype(np.int32)
+                ms[:6] = (INT32_MIN, INT32_MAX, dp_screen.NEG_INF, dp_screen.NEG_INF + 1,
+                          INT32_MIN, 0)
+                for ranges in (True, False):
+                    max_err = max(max_err, compare_rows(
+                        torch, dp_cuda, dp_screen, sk,
+                        f"{'per-row' if per_row else 'shared'} Q={Q} B={B} T={T} "
+                        f"ranges={ranges}", qd, tm, ln,
+                        torch.from_numpy(ms).to(device) if ranges else None, lanes=L))
+    return max_err
+
+
+ROWS_Q = 20  # the timed shapes' query length (config 3's guide)
+ROW_MAIN = "a per-row 20000x256"  # the kernels line's shape for the row kernel
+
+
+def row_targets(torch, np, device, seed: int = 90) -> dict:
+    """The row kernel's timed target batches: ``{label: (tmasks, lengths,
+    per_row, ranges)}``, random ACGT masks made on the card: (a) 20,000
+    rows x slot 256, lengths uniform 0..256, ranges on (the per-row shape
+    timed since the first design); (b) pairs20k's chunks as
+    PairwiseAlignSequences sends them (targets of 100-200 bases, bucketed
+    by slot): 2,870 x 128 with lengths 100-128 and 7,130 x 256 with
+    lengths 129-200, ranges off; (c) a2r20k's chunks as AlignToReference
+    builds them at ``-w 200``: 5,000 rows of 201 bases in slot 256,
+    ranges on (all-hits); (d) shared query, 41,238 rows x 1000, lengths
+    0..1000, no ranges (``_kernel``'s contract at config 3's window
+    count); (e) per-row chunks at the lane table's row-count bounds and
+    at other slots, lengths in (slot/2, slot] as the pair screen buckets
+    them: 4,000 x 128, 5,500 x 128, 6,000 x 512 (ranges on), 12,000 x
+    256, 12,000 x 1024 (ranges on) and 32,768 x 128 (a full chunk)."""
+    rng = np.random.default_rng(seed)
+    acgt = torch.tensor([1, 2, 4, 8], dtype=torch.uint8, device=device)
+
+    def batch(B, T, lo, hi):
+        tm = acgt[torch.from_numpy(rng.integers(0, 4, (B, T))).to(device)].contiguous()
+        ln = torch.from_numpy(rng.integers(lo, hi + 1, B).astype(np.int32)).to(device)
+        return tm, ln
+
+    out = {
+        "a per-row 20000x256": (*batch(20_000, 256, 0, 256), True, True),
+        "b pairs20k 2870x128": (*batch(2_870, 128, 100, 128), True, False),
+        "b pairs20k 7130x256": (*batch(7_130, 256, 129, 200), True, False),
+        "c a2r20k 5000x256": (*batch(5_000, 256, 201, 201), True, True),
+        "d shared 41238x1000": (*batch(41_238, 1000, 0, 1000), False, False),
+    }
+    for B, slot, ranges in ((4_000, 128, False), (5_500, 128, False), (6_000, 512, True),
+                            (12_000, 256, False), (12_000, 1024, True),
+                            (32_768, 128, False)):
+        out[f"e chunk {B}x{slot}"] = (*batch(B, slot, slot // 2 + 1, slot), True, ranges)
+    return out
+
+
+def row_shapes(torch, np, scorer, targets: dict, Q: int, rng) -> list:
+    """The timed row-screen calls at query length ``Q``: ``[(label,
+    qmasks, tmasks, lengths, min_scores)]`` over :func:`row_targets`'
+    batches; per-row queries are random ACGT with chain B their reverse
+    complement, thresholds a perfect hit less 0-5 gaps."""
+    out = []
+    for label, (tm, ln, per_row, ranges) in targets.items():
+        B = tm.shape[0]
+        dev = tm.device
+        if per_row:
+            qa = rng.choice(np.array([1, 2, 4, 8], np.uint8), (B, Q))
+            q = torch.from_numpy(np.stack([qa, np.asarray(RC_MASK, np.uint8)[qa[:, ::-1]]])
+                                 ).to(dev)
+        else:
+            q = rng.choice(np.array([1, 2, 4, 8], np.uint8), (1, Q))
+        ms = None
+        if ranges:
+            ms = torch.from_numpy(
+                (scorer.match_score * Q - rng.integers(0, 6, B) * 122).astype(np.int32)
+            ).to(dev)
+        out.append((label, q, tm, ln, ms))
+    return out
+
+
+def row_lane_launchers(dp_cuda, shape, lanes, sk) -> dict:
+    """``{L: () -> (launch, outputs)}``: prepared row-kernel launches of
+    ``shape`` (from :func:`row_shapes`) with each L of ``lanes``."""
+    _label, q, tm, ln, ms = shape
+    return {L: (lambda L=L: dp_cuda._screen_rows_launcher(q, tm, ln, ms, lanes=L, **sk))
+            for L in lanes}
+
+
+ROWS_Q24 = ("b", "c")  # the shapes also timed at Q 24: the list tools' second guide
+
+
+def row_lane_times(torch, np, dp_cuda, probes, dp_screen, scorer, device, regs) -> dict:
+    """Phase 9, third part: at Q 20 (and Q 24 for (b) and (c)), each shape
+    of :func:`row_targets` timed with each L, the launcher's choice and
+    the plain version; every L's outputs, as the timing's graphs left
+    them, and the wrapper's (the launcher's L) must equal the plain
+    version's bit for bit.  Then at every Q from 2 to 48, each L at each
+    shape, whose outputs must all be equal, and the launcher's L, which
+    must be within ``LANE_NOISE`` of the fastest at every shape.  Returns
+    ``{label: {L: ms, ..., "launcher": L, "plain": ms, "work": (ops,
+    bytes)}}`` at Q 20, (b)'s and (c)'s also at Q 24 (labels ending
+    " Q=24"); the bounds need phase 13's int32 rate."""
+    rng = np.random.default_rng(91)
+    sk = dict(match=scorer.match_score, mismatch=scorer.mismatch_score,
+              qgap=scorer.query_gap_score, tgap=scorer.target_gap_score)
+    targets = row_targets(torch, np, device)
+    out = {}
+    for Q in (ROWS_Q, 24):
+        for shape in row_shapes(torch, np, scorer, targets, Q, rng):
+            label, q, tm, ln, ms = shape
+            if Q != ROWS_Q and not label.startswith(ROWS_Q24):
+                continue
+            per_row = q.ndim == 3
+            lanes = dp_cuda.rows_lanes(Q, per_row)
+            want = dp_screen.screen_rows_reference(q, tm, ln, ms, **sk)
+            outs = {}
+            row = launcher_times(probes, row_lane_launchers(dp_cuda, shape, lanes, sk), outs)
+            row["launcher"] = dp_cuda.screen_rows_default_lanes(Q, tm.shape[0], per_row)
+            err = max(same_rows(torch, got, want, f"{label} Q={Q} L={L} (graph)")
+                      for L, got in outs.items())
+            err = max(err, same_rows(torch, dp_cuda.screen_rows(q, tm, ln, ms, **sk), want,
+                                     f"{label} Q={Q} wrapper"))
+            row["plain"] = cuda_time_ms(torch, lambda: dp_screen.screen_rows_reference(
+                q, tm, ln, ms, **sk), 3)
+            mode = "per-row" if per_row else "shared"
+            log(f"[row lanes] {label} (Q {Q}, {mode}, ranges {ms is not None}): " + ", ".join(
+                f"L={x} {row[x]:.5f} ms ({regs[Q, x, per_row][0]} registers, "
+                f"{regs[Q, x, per_row][1]} spill bytes)" for x in lanes)
+                + f"; launcher L={row['launcher']}; plain {row['plain']:.4f} ms; every L "
+                f"and the wrapper bit-identical to the plain version (max_abs_err {err})")
+            row["work"] = probes.rows_work(ln.cpu().numpy(), Q, 2 if per_row else 1,
+                                           per_row, ms is not None)
+            out[label if Q == ROWS_Q else f"{label} Q={Q}"] = row
+    wrong = {}
+    for Q in range(2, dp_cuda.Q_MAX + 1):
+        line = []
+        for shape in row_shapes(torch, np, scorer, targets, Q, rng):
+            label, q, tm, _ln, _ms = shape
+            outs = {}
+            ms = launcher_times(probes, row_lane_launchers(
+                dp_cuda, shape, dp_cuda.rows_lanes(Q, q.ndim == 3), sk), outs)
+            first = min(outs)
+            for L, got in outs.items():
+                same_rows(torch, got, outs[first], f"{label} Q={Q} L={L} against L={first}")
+            fastest = min(ms, key=ms.get)
+            launcher = dp_cuda.screen_rows_default_lanes(Q, tm.shape[0], q.ndim == 3)
+            line.append(f"{label}: " + " ".join(f"L{L} {t:.5f}" for L, t in ms.items())
+                        + f" fastest L{fastest} launcher L{launcher}")
+            if ms[launcher] > ms[fastest] * LANE_NOISE:
+                wrong[Q, label] = ms
+        log(f"[row lanes] Q={Q} (ms; every L's outputs equal): " + "; ".join(line))
+    if wrong:
+        raise AssertionError(f"the row launcher's L is not within {LANE_NOISE} of the "
+                             f"fastest at {wrong}")
+    return out
 
 
 def pair_screen_run(torch, cli, dp_cuda, dp_screen, argv: list):
@@ -1191,7 +1416,7 @@ def list_tools_at_scale(torch, np, dp_cuda, dp_screen, tmp: Path) -> int:
     runs = list_tool_inputs(np, tmp)
     launches = 0
     for name, argv in runs.items():
-        with PoolWatch() as pool:
+        with PoolWatch() as pool, ChunkLog() as chunks:
             wall, n, plain = pair_screen_run(
                 torch, cli, dp_cuda, dp_screen,
                 [*argv, "-o", tmp / f"{name}_gpu.txt", "--engine", "gpu"])
@@ -1212,9 +1437,36 @@ def list_tools_at_scale(torch, np, dp_cuda, dp_screen, tmp: Path) -> int:
             + ", ".join(f"{w:.3f}" for w in walls["gpu"]) + " s, host "
             + ", ".join(f"{w:.3f}" for w in walls["host"])
             + f" s; finish pool {workers} workers, never broken")
+        log(f"[{name}] pair-screen chunks of the gpu runs (count x message): " + "; ".join(
+            f"{k} x {m}" for m, k in sorted(collections.Counter(chunks.messages).items())))
         check_kernel_route(name, n, plain)
         launches += n
     return launches
+
+
+class ChunkLog(logging.Handler):
+    """Collects the pair screen's DEBUG line per chunk (rows, slot, Q,
+    ranges, route) from the ``calitas_tpu_torch.screen`` logger while
+    the block runs."""
+
+    def __init__(self):
+        super().__init__(logging.DEBUG)
+        self.messages = []
+        self._logger = logging.getLogger("calitas_tpu_torch.screen")
+
+    def emit(self, record):
+        if record.getMessage().startswith("Pair screen chunk"):
+            self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self._level = self._logger.level
+        self._logger.setLevel(logging.DEBUG)
+        self._logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self)
+        self._logger.setLevel(self._level)
 
 
 def long_guide(torch, dp_cuda, dp_screen, tmp: Path) -> None:
@@ -1463,6 +1715,16 @@ def main() -> int:
     built = sum(L <= q for L in dp_cuda.MULTI_LANES for q in range(1, dp_cuda.Q_MAX + 1))
     if len(multi_regs) != built or spilled:
         raise AssertionError(f"screen_multi: {len(multi_regs)} instantiations, spills {spilled}")
+    lib = dp_cuda.build_all(["screen_rows"])["screen_rows"]
+    rows_regs = lane_ptxas(lib.with_name(lib.name + ".log"), "screen_rows_kernel")
+    log("[build] screen_rows registers (Q/L/per-row): " + ", ".join(
+        f"{q}/{L}/{int(pr)} {r}" for (q, L, pr), (r, _sp) in sorted(rows_regs.items())
+        if q in (1, 2, 4, 20, 21, 47, 48)))
+    spilled = {key: sp for key, (_r, sp) in rows_regs.items() if sp}
+    built = sum(len(dp_cuda.rows_lanes(q, per_row)) for per_row in (False, True)
+                for q in range(1, dp_cuda.Q_MAX + 1))
+    if len(rows_regs) != built or spilled:
+        raise AssertionError(f"screen_rows: {len(rows_regs)} instantiations, spills {spilled}")
 
     phase_s = {}
     try:
@@ -1518,8 +1780,15 @@ def main() -> int:
 
             # 9-12. The row kernel and its paths, and the long-guide route
             t0 = time.perf_counter()
-            rows_err, rows_ms, rows_lens = rows_vs_plain(
-                torch, np, dp_cuda, dp_screen, scorer, device)
+            rows_err = max(rows_vs_plain(torch, np, dp_cuda, dp_screen, scorer, device),
+                           rows_lanes_vs_plain(torch, np, dp_cuda, dp_screen, scorer, device))
+            row_shape_rows = row_lane_times(torch, np, dp_cuda, probes, dp_screen, scorer,
+                                            device, rows_regs)
+            for L, c in lane_sass(dp_cuda, "screen_rows", ROWS_Q, "Lb1E").items():
+                log(f"[row lanes] SASS of screen_rows_kernel<{ROWS_Q}, {L}, true>: "
+                    f"{c['total']} instructions; steady loop {c['loop']} with "
+                    f"{c['loop_VIADDMNMX']} VIADDMNMX, {c['per_cell_chain']:.2f} per cell and "
+                    f"chain; {c['loop_top']}")
             phase_s["9 rows vs plain"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             rows_launches = goldens_1_2(torch, dp_cuda, dp_screen, tmp)
@@ -1547,15 +1816,16 @@ def main() -> int:
         "screen_dual": probes.grid_work(CONTIG, 0, DEFAULT_STEP, dual_n, 1000, 20),
         "screen_multi": probes.grid_work(CONTIG, 0, DEFAULT_STEP, dual_n, 1000, 20,
                                          guides=4),
-        # the list tools' mode: a query per row, both chains, ranges on
-        "screen_rows": probes.rows_work(rows_lens["per-row"], 20, 2, True, True),
+        # the list tools' mode at (a): a query per row, both chains, ranges on
+        "screen_rows": row_shape_rows[ROW_MAIN]["work"],
         "ceiling_probe": probes.probe_work("ceiling_probe", T, N, Q),
         "peak_probe": probes.probe_work("peak_probe", T, N, Q),
     }
     timed = {
         "screen_dual": (kernel_ms, plain_ms),
         "screen_multi": (multi_ms[4], multi_plain_ms),
-        "screen_rows": rows_ms["per-row"],
+        "screen_rows": (row_shape_rows[ROW_MAIN][row_shape_rows[ROW_MAIN]["launcher"]],
+                        row_shape_rows[ROW_MAIN]["plain"]),
         **probe_ms,
     }
     bounds = {name: probes.bound_ms(ops, nbytes, peak) for name, (ops, nbytes) in work.items()}
@@ -1563,11 +1833,13 @@ def main() -> int:
         log(f"[bounds] {name}: {timed[name][0]:.4f} ms against a bound of {b_ms:.4f} ms "
             f"({b_by}): {100 * b_ms / timed[name][0]:.2f} % of the bound")
 
-    for label, row in multi_shape_rows.items():
-        b_ms, b_by = probes.bound_ms(*row["work"], peak)
-        L = row["launcher"]
-        log(f"[bounds] screen_multi {label}: launcher L={L} {row[L]:.5f} ms against a bound "
-            f"of {b_ms:.5f} ms ({b_by}): {100 * b_ms / row[L]:.2f} % of the bound")
+    for kernel, shape_rows in (("screen_multi", multi_shape_rows),
+                               ("screen_rows", row_shape_rows)):
+        for label, row in shape_rows.items():
+            b_ms, b_by = probes.bound_ms(*row["work"], peak)
+            L = row["launcher"]
+            log(f"[bounds] {kernel} {label}: launcher L={L} {row[L]:.5f} ms against a bound "
+                f"of {b_ms:.5f} ms ({b_by}): {100 * b_ms / row[L]:.2f} % of the bound")
 
     log("[phases] " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
     log(smi)

@@ -24,6 +24,7 @@ SKW = dict(
     qgap=SCORER.query_gap_score, tgap=SCORER.target_gap_score,
 )
 NEG_INF = port_dp.NEG_INF
+INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
 
 
 def _shared_case(seed, B=1024, T=64, Q=12):
@@ -211,6 +212,95 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(qmasks, tmasks, lengths,
         dp_cuda.screen_rows(qmasks, tmasks, lengths, min_scores, **SKW)
 
 
+def test_lanes_route_cpu_tensors_to_the_plain_version():
+    """``_screen_rows_lanes`` on a CPU tensor runs the plain version and
+    launches nothing: the lane count only matters on the card."""
+    qa, qb, tmasks, lengths, _ = _per_row_case(21, 9, 64, 16)
+    tm, ln = torch.from_numpy(tmasks), torch.from_numpy(lengths)
+    ms = np.full(16, 300, np.int32)
+    ms[:2] = INT32_MIN, INT32_MAX
+    launches = dict(dp_cuda.launches)
+    got = dp_cuda._screen_rows_lanes(np.stack([qa, qb]), tm, ln, ms, lanes=4, **SKW)
+    want = port_dp.screen_rows_reference(np.stack([qa, qb]), tm, ln, ms, **SKW)
+    assert dp_cuda.launches == launches
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("Q,lanes,per_row", [
+    (8, 3, True), (8, 8, True), (8, 4, False),  # not built
+    (3, 4, True), (1, 2, False),  # over Q
+    (8, -1, True), (20, 0, False),  # no lane count
+])
+def test_lanes_rejects_what_the_library_is_not_built_for(Q, lanes, per_row):
+    """An L the library is not built for (3 and 8; shared-query L 4), an
+    L over Q, or a lane count that is no count: refused before any route,
+    on any device."""
+    with pytest.raises(ValueError, match="lanes must be"):
+        dp_cuda._screen_rows_lanes(
+            np.ones((2, 8, Q) if per_row else (1, Q), np.uint8),
+            torch.zeros((8, 16), dtype=torch.uint8), torch.zeros(8, dtype=torch.int32),
+            lanes=lanes, **SKW)
+
+
+def test_rows_lanes_lists_the_built_lane_counts():
+    assert dp_cuda.rows_lanes(1, True) == (1,) and dp_cuda.rows_lanes(1, False) == (1,)
+    assert dp_cuda.rows_lanes(3, True) == (1, 2)
+    assert dp_cuda.rows_lanes(48, True) == (1, 2, 4)
+    assert dp_cuda.rows_lanes(48, False) == (1, 2)
+
+
+def test_prepared_launch_needs_a_cuda_tensor():
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        dp_cuda._screen_rows_launcher(
+            np.ones((1, 4), np.uint8), torch.zeros((8, 16), dtype=torch.uint8),
+            torch.zeros(8, dtype=torch.int32), **SKW)
+
+
+CHUNK_CASES = [  # (seed, Q, slot, B, lengths): the list tools' chunks, small
+    (30, 20, 128, 40, (100, 128)),  # pairs20k, slot 128: targets of 100-128 bases
+    (31, 24, 256, 36, (129, 200)),  # pairs20k, slot 256: 129-200 bases
+    (32, 20, 256, 30, (201, 201)),  # a2r20k at -w 200: every target 201 bases
+]
+
+
+@pytest.mark.parametrize("seed,Q,slot,B,lengths", CHUNK_CASES)
+def test_per_row_matches_pair_scores_dual_at_chunk_shapes(seed, Q, slot, B, lengths):
+    """The per-row plain version against the JAX pair screen's XLA scans
+    at small analogues of the chunks the list tools send: every length in
+    (slot/2, slot], per-row thresholds with INT32_MIN and INT32_MAX among
+    them.  Tolerance: exact."""
+    from calitas_tpu.ops.pair_screen import (
+        _pair_scores_dual,
+        _pair_scores_dual_ranges,
+    )
+
+    qa, qb, tmasks, _lengths, rng = _per_row_case(seed, Q, slot, B)
+    lengths = rng.integers(lengths[0], lengths[1] + 1, size=B).astype(np.int32)
+    assert (lengths > slot // 2).all() and (lengths <= slot).all()
+    tmasks[1, 7 : 7 + Q] = qb[1]  # a perfect chain-B hit inside every length
+    want = np.asarray(_pair_scores_dual(qa, qb, tmasks, lengths, **SKW))
+    best, ranges = port_dp.screen_rows_reference(
+        np.stack([qa, qb]), torch.from_numpy(tmasks), torch.from_numpy(lengths), **SKW)
+    assert ranges is None
+    np.testing.assert_array_equal(best.numpy().reshape(-1), want)
+    assert want[B + 1] == SCORER.match_score * Q
+
+    ms = (want[:B] - rng.integers(0, 300, size=B)).astype(np.int32)
+    ms[:4] = INT32_MIN, INT32_MAX, NEG_INF, NEG_INF + 1
+    wb, wmn, wmx = (
+        np.asarray(x)
+        for x in _pair_scores_dual_ranges(qa, qb, tmasks, lengths, ms, **SKW)
+    )
+    best, ranges = port_dp.screen_rows_reference(
+        np.stack([qa, qb]), torch.from_numpy(tmasks), torch.from_numpy(lengths), ms, **SKW)
+    np.testing.assert_array_equal(best.numpy().reshape(-1), wb)
+    np.testing.assert_array_equal(ranges[:, 0].numpy().reshape(-1), wmn)
+    np.testing.assert_array_equal(ranges[:, 1].numpy().reshape(-1), wmx)
+    assert wmn[0] == 1 and wmx[0] == slot  # INT32_MIN: every end column, tail included
+    assert wmn[1] == slot + 1 and wmx[1] == 0  # INT32_MAX: none
+
+
 @pytest.fixture()
 def cuda():
     if not torch.cuda.is_available():
@@ -260,3 +350,64 @@ def test_kernel_rejects_long_queries_and_other_chain_counts(cuda):
         dp_cuda.screen_rows(np.ones((1, 49), np.uint8), tmasks, ln, **SKW)
     with pytest.raises(ValueError, match="CUDA row screen"):
         dp_cuda.screen_rows(np.ones((2, 8), np.uint8), tmasks, ln, **SKW)
+
+
+LANE_CASES = [  # (Q, T, lanes, per_row): every built L at the split's edges and Q 20/24
+    (Q, T, L, per_row)
+    for Q, T in ((1, 64), (2, 100), (20, 128), (21, 256), (23, 201), (24, 256), (47, 128),
+                 (48, 512))
+    for per_row in (False, True)
+    for L in dp_cuda.rows_lanes(Q, per_row)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,T,lanes,per_row", LANE_CASES)
+def test_lanes_match_plain_version(cuda, Q, T, lanes, per_row):
+    """Each lane count in both modes, bit for bit, ranges on and off, on
+    4,099 rows (not a multiple of any block's rows) whose lengths mix 0,
+    1, L - 1, T and past T inside one warp, with min scores at INT32_MIN,
+    INT32_MAX and NEG_INF beside ordinary ones."""
+    rng = np.random.default_rng(Q * 100 + T + 10 * lanes + per_row)
+    B = 4099
+    tmasks = torch.from_numpy(rng.integers(0, 16, size=(B, T), dtype=np.uint8)).to(cuda)
+    lengths = rng.integers(0, T + 1, size=B)
+    edge = np.array([0, 1, lanes - 1, T, T + 9])
+    lengths[:32] = edge[np.arange(32) % len(edge)]  # the first warp's rows
+    lengths[-5:] = edge  # and the last, partial block's
+    ln = torch.from_numpy(lengths.astype(np.int32)).to(cuda)
+    q = rng.integers(1, 16, size=(2, B, Q) if per_row else (1, Q)).astype(np.uint8)
+    best0, _ = port_dp.screen_rows_reference(q, tmasks, ln, **SKW)
+    ms = (best0.amax(0).cpu().numpy() - rng.integers(0, 400, B)).astype(np.int32)
+    ms[:5] = INT32_MIN, INT32_MAX, NEG_INF, NEG_INF + 1, INT32_MIN
+    for min_scores in (torch.from_numpy(ms).to(cuda), None):
+        launches = dp_cuda.launches["screen_rows"]
+        got = dp_cuda._screen_rows_lanes(q, tmasks, ln, min_scores, lanes=lanes, **SKW)
+        torch.cuda.synchronize()
+        assert dp_cuda.launches["screen_rows"] == launches + 1
+        want = port_dp.screen_rows_reference(q, tmasks, ln, min_scores, **SKW)
+        assert torch.equal(got[0], want[0])
+        if min_scores is None:
+            assert got[1] is None
+        else:
+            assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_row", [False, True])
+def test_kernel_refuses_scores_whose_shift_leaves_int32(cuda, per_row):
+    """A mismatch score whose end shift Q * mismatch leaves int32: the
+    kernel refuses the launch at every L and the wrapper raises; nothing
+    runs the plain version in its place."""
+    Q, B = 48, 70
+    tmasks = torch.zeros((B, 64), dtype=torch.uint8, device=cuda)
+    ln = torch.full((B,), 64, dtype=torch.int32, device=cuda)
+    q = np.ones((2, B, Q) if per_row else (1, Q), np.uint8)
+    kw = dict(SKW, mismatch=-(2**26))
+    calls = port_dp.reference_calls.get("cuda", 0)
+    with pytest.raises(RuntimeError, match="screen_rows launch failed"):
+        dp_cuda.screen_rows(q, tmasks, ln, **kw)
+    for lanes in dp_cuda.rows_lanes(Q, per_row):
+        with pytest.raises(RuntimeError, match="screen_rows launch failed"):
+            dp_cuda._screen_rows_lanes(q, tmasks, ln, lanes=lanes, **kw)
+    assert port_dp.reference_calls.get("cuda", 0) == calls
