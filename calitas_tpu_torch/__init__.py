@@ -16,8 +16,10 @@ The host half, copied from it (imports renamed; ``LazyCigar`` pickles,
   - io/                       FASTA (.fai/.dict), VCF, BGZF, TSV
   - native/                   the C++ host finish, built with g++ at first use
   - align/                    oracle, engine, batched native finish
-  - search/                   windows, hits, the variant window builder
+  - search/                   windows, hits, the variant window builder,
+                              checkpoint/resume (checkpoint.py)
   - parallel/host_pool.py     the finish worker pool
+  - parallel/multihost.py     whole-contig shards and their merge
   - tools/prepare_vcf.py      PrepareVcf
   - goldens.py                inputs of the golden configurations
 The device half:
@@ -36,7 +38,10 @@ The device half:
   - tools/search_reference.py SearchReference: both engines' passes
   - tools/pairwise.py         PairwiseAlignSequences
   - tools/align_to_reference.py AlignToReference (best and all-hits modes)
-  - cli.py                    the command line of the four tools
+  - serve.py                  resident serving: ResidentSearcher (contigs
+                              staged once on the device), serve_stdio
+  - cli.py                    the command line of the four tools,
+                              MergeHitTables and Serve
 """
 
 __version__ = "0.1.0"

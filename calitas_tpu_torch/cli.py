@@ -3,13 +3,19 @@
 with the flags and defaults of ``calitas_tpu/cli.py``
 (SearchReference.scala:451-471, AlignToReference.scala:34-51,
 PairwiseAlignSequences.scala:24-34, PrepareVcf.scala:31-37), and
-``--engine {auto,host,gpu}`` and ``--device`` on the three that screen.
-PrepareVcf is host-only (``tools/prepare_vcf.py``).
+``--engine {auto,host,gpu}`` and ``--device`` on the three that screen
+and on Serve.  PrepareVcf and MergeHitTables are host-only.
 
     python -m calitas_tpu_torch SearchReference -i GUIDE -I ID -r REF.fa \\
         -o OUT.txt --engine gpu [-v VARIANTS.vcf]
     python -m calitas_tpu_torch SearchReference --guide-file GUIDES.tsv \\
         -r REF.fa -o OUT.txt --engine gpu
+    python -m calitas_tpu_torch SearchReference ... --checkpoint STATE.jsonl
+    python -m calitas_tpu_torch SearchReference ... -o SHARD_I.txt \\
+        --process-index I --process-count N
+    python -m calitas_tpu_torch MergeHitTables -i SHARD_0.txt SHARD_1.txt \\
+        -o OUT.txt -r REF.fa
+    python -m calitas_tpu_torch Serve -r REF.fa [-v VARIANTS.vcf] --engine gpu
     python -m calitas_tpu_torch AlignToReference -i LOCI.tsv -r REF.fa \\
         -o OUT.txt --engine gpu [-w 200 -d 4 -p 1 -O 5]
     python -m calitas_tpu_torch PairwiseAlignSequences -i PAIRS.txt \\
@@ -28,10 +34,7 @@ from calitas_tpu_torch.device import ENGINES
 #: reference CLI flags whose features the port does not have yet, and the
 #: ROADMAP item that brings each
 _NOT_PORTED = {
-    "checkpoint": "--checkpoint: ROADMAP Queue 1 item 11",
-    "process_index": "--process-index: ROADMAP Queue 1 item 11",
-    "process_count": "--process-count: ROADMAP Queue 1 item 11",
-    "distributed": "--distributed: ROADMAP Queue 1 item 9",
+    "distributed": "--distributed: ROADMAP Queue 1 item 5",
 }
 
 
@@ -162,11 +165,15 @@ def build_parser() -> argparse.ArgumentParser:
     sr.add_argument("--profile-dir", default=None,
                     help="Write a torch.profiler trace of the run to this "
                          "directory.")
-    sr.add_argument("--checkpoint", default=None, help="Not ported yet.")
+    sr.add_argument("--checkpoint", default=None,
+                    help="State file: each finished contig's hits are "
+                         "appended to it; a rerun with the same inputs "
+                         "skips the contigs it holds.")
     sr.add_argument("--process-index", type=int, default=None,
-                    help="Not ported yet.")
+                    help="Search only this process's whole-contig shard "
+                         "(0-based; with --process-count).")
     sr.add_argument("--process-count", type=int, default=None,
-                    help="Not ported yet.")
+                    help="Number of shards; MergeHitTables joins their tables.")
     sr.add_argument("--distributed", action="store_true", help="Not ported yet.")
 
     ar = sub.add_parser(
@@ -209,6 +216,41 @@ def build_parser() -> argparse.ArgumentParser:
                          "available; output-identical).")
     _add_device_arg(pw)
 
+    mh = sub.add_parser(
+        "MergeHitTables",
+        help="Merge per-shard SearchReference tables (whole-contig shards) "
+             "into the table of one run over the whole genome.",
+    )
+    mh.add_argument("-i", "--input", nargs="+", required=True,
+                    help="Per-shard hit tables to merge.")
+    mh.add_argument("-o", "--output", required=True)
+    mh.add_argument("-r", "--ref", default=None,
+                    help="Reference fasta (for the dictionary sort order).")
+
+    sv = sub.add_parser(
+        "Serve",
+        help="Long-lived search server: stage the genome (and index the "
+             "VCF) once, answer SearchReference requests over a JSON "
+             "line protocol on stdin/stdout.",
+    )
+    sv.add_argument("-r", "--ref", required=True, help="Reference genome fasta.")
+    sv.add_argument("-v", "--variants", default=None,
+                    help="Optional VCF of variants to search in addition to "
+                         "the reference.")
+    sv.add_argument("-w", "--window-size", type=int, default=1000)
+    sv.add_argument("-t", "--threads", type=int, default=8)
+    sv.add_argument("-c", "--contigs", nargs="*", default=None,
+                    help="Stage only these contigs (default: all).")
+    sv.add_argument("--engine", choices=ENGINES, default="auto",
+                    help="Execution engine (auto: gpu when CUDA is available).")
+    _add_device_arg(sv)
+    sv.add_argument("--warmup", type=_strict_bool, nargs="?", const=True,
+                    default=True, metavar="true|false",
+                    help="Build the kernels and run a throwaway search at "
+                         "startup, so the first request runs warm (default: "
+                         "on; --warmup false skips it).")
+    _add_scoring_args(sv)
+
     pv = sub.add_parser("PrepareVcf",
                         help="Prepares a VCF for optimal use by SearchReference.")
     pv.add_argument("-i", "--input", nargs="+", required=True,
@@ -241,6 +283,8 @@ def main(argv: list[str] | None = None) -> int:
         "AlignToReference": _align_to_reference,
         "PairwiseAlignSequences": _pairwise,
         "PrepareVcf": _prepare_vcf,
+        "MergeHitTables": _merge_hit_tables,
+        "Serve": _serve,
     }[args.command]
     try:
         return run(args)
@@ -293,6 +337,9 @@ def _search_reference(args) -> int:
         engine=args.engine,
         device=args.device,
         profile_dir=args.profile_dir,
+        checkpoint=args.checkpoint,
+        process_index=args.process_index,
+        process_count=args.process_count,
     )
     return 0
 
@@ -350,6 +397,38 @@ def _prepare_vcf(args) -> int:
         dict_path=args.dict_path,
         add_chr_prefix=args.add_chr_prefix,
     )
+    return 0
+
+
+def _merge_hit_tables(args) -> int:
+    from calitas_tpu_torch.io.fasta import extract_dictionary
+    from calitas_tpu_torch.parallel.multihost import merge_host_outputs
+
+    dictionary = extract_dictionary(args.ref) if args.ref else None
+    n = merge_host_outputs(args.input, dictionary, args.output)
+    print(f"Wrote {n} rows to {args.output}", file=sys.stderr)
+    return 0
+
+
+def _serve(args) -> int:
+    from calitas_tpu_torch.serve import ResidentSearcher, serve_stdio
+
+    searcher = ResidentSearcher(
+        ref=args.ref,
+        variants=args.variants,
+        window_size=args.window_size,
+        threads=args.threads,
+        engine=args.engine,
+        device=args.device,
+        contigs=args.contigs,
+        guide_mismatch_net_cost=args.guide_mismatch_net_cost,
+        pam_mismatch_net_cost=args.pam_mismatch_net_cost,
+        genome_gap_net_cost=args.genome_gap_net_cost,
+        guide_gap_net_cost=args.guide_gap_net_cost,
+    )
+    if args.warmup:
+        searcher.warmup()
+    serve_stdio(searcher)
     return 0
 
 

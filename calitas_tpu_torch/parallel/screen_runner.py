@@ -68,6 +68,7 @@ def screened_search(
     hit_spec: dict,
     threads: int = 1,
     swallow_errors: bool = False,
+    prestaged: Optional[dict] = None,
     **align_kwargs,
 ) -> Iterator[tuple]:
     """Search every contig with the device screen + batched native
@@ -75,7 +76,10 @@ def screened_search(
     RenderedBlock of finished 34-column rows.  ``hit_spec`` carries the
     run-scoped row fields (ref_path, aligner_id, arguments, vcf_id,
     timestamp, aligner_version).  Contigs outer (staged once), guides
-    inner."""
+    inner.  ``prestaged`` maps contig names to arrays that
+    :meth:`GenomeScreen.stage` already made (a resident genome): those
+    contigs are neither read nor staged again, and the screens never
+    write into them (PAM bits go into a copy per guide group)."""
     names = [chrom] if chrom is not None else fasta.names
     groups = _guide_groups(tasks, align_kwargs)
     for (q_len, _step, _pspec), group in groups.items():
@@ -86,12 +90,15 @@ def screened_search(
 
     # A one-slot staging thread reads and uploads contig N+1 while contig
     # N is screened and finished (at most two staged contigs live on the
-    # device at once).
+    # device at once, besides the resident ones).
     def stage_contig(name: str):
         contig_len = fasta.sequence_length(name) or 0
         if contig_len < 2:
             return name, contig_len, None  # too short to search
-        return name, contig_len, screen.stage(fasta.get_bases(name))
+        genome = (prestaged or {}).get(name)
+        if genome is None:
+            genome = screen.stage(fasta.get_bases(name))
+        return name, contig_len, genome
 
     stager = ThreadPoolExecutor(max_workers=1, thread_name_prefix="calitas-stage")
     try:

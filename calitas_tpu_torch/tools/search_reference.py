@@ -17,6 +17,13 @@ variant feeds are lazy threaded iterators drained after its reference
 pass.  Both engines finish the variant windows through the same pool.
 
 Hits are deduplicated, sorted and written as the 34-column table.
+
+A run can cover a whole-contig shard of the genome (``process_index`` of
+``process_count``; ``MergeHitTables`` joins the shards' tables), and can
+checkpoint each finished contig to resume after a crash
+(``search/checkpoint.py``).  Resident serving (``serve.py``) hands in
+its VCF index, screen and staged contigs through ``run``'s underscored
+keywords.
 """
 
 from __future__ import annotations
@@ -90,11 +97,22 @@ def run(
     engine: str = "auto",  # 'auto' | 'host' | 'gpu'
     device: Optional[str] = None,  # the gpu engine's torch device (default cuda)
     profile_dir: Optional[str] = None,
+    checkpoint: Optional[str | Path] = None,
+    process_index: Optional[int] = None,
+    process_count: Optional[int] = None,
+    _vcf_index=None,  # prebuilt VcfIndex of ``variants`` (resident serving)
+    _screen=None,  # GenomeScreen on the gpu engine's device (resident serving)
+    _prestaged=None,  # {contig: GenomeScreen.stage array} (resident serving)
 ) -> None:
     """Search ``ref`` for one guide (``guide`` + ``guide_id``) or several
     (``guide_specs``) and write the table to ``output`` (stdout if None).
     With ``profile_dir`` a ``torch.profiler`` trace of the run is written
-    there as ``trace.json``."""
+    there as ``trace.json``.  ``process_index`` of ``process_count``
+    searches only that process's whole-contig shard.  ``checkpoint`` names
+    a state file: each finished contig's hits are appended to it, and a
+    rerun with the same inputs skips the contigs it holds.  The
+    underscored keywords replace what the run would build itself; the
+    host engine ignores ``_screen`` and ``_prestaged``."""
     run_start = time.perf_counter()
     if ref is None:
         raise ValueError("SearchReference requires a reference FASTA (ref=)")
@@ -112,6 +130,7 @@ def run(
     ref = Path(ref)
     dictionary = extract_dictionary(ref)  # required (SearchReference.scala:478-484)
     ref_file = IndexedFasta(ref)
+    shard_contigs = _shard(dictionary, chrom, process_index, process_count)
     aligner = SequentialAligner(
         mismatch_net_cost=guide_mismatch_net_cost,
         pam_mismatch_net_cost=pam_mismatch_net_cost,
@@ -186,28 +205,48 @@ def run(
             window_size, range_block(window_size),
         )
 
-    # Parse and index the VCF once per run (SearchReference.scala:227-231).
+    # Parse and index the VCF once per run (SearchReference.scala:227-231);
+    # every guide and checkpointed contig queries the one index.
     vcf_index = None
     if variants is not None:
         from calitas_tpu_torch.io.vcf import VcfIndex
 
-        vcf_index = VcfIndex(variants)
+        vcf_index = _vcf_index if _vcf_index is not None else VcfIndex(variants)
+
+    progress = ProgressLogger(logger, noun="windows", verb="Processed", unit=25_000)
+
+    def search(contig: Optional[str], out: list) -> None:
+        """Both passes over ``contig`` (the whole genome when None)."""
+        if screen_device is None:
+            _run_both_passes(
+                contig, out, specs, builders, aligner, ref_file, vcf_index,
+                max_variants, window_size, step_for, threads, align_kwargs,
+                progress,
+            )
+        else:
+            _screened_passes(
+                contig, out, specs, builders, aligner, ref_file, vcf_index,
+                max_variants, window_size, step_for, threads, align_kwargs,
+                screen_device, _screen, _prestaged,
+            )
 
     logger.info("Aligning to reference genome without variants.")
     hits: list = []
-    if screen_device is None:
-        progress = ProgressLogger(logger, noun="windows", verb="Processed", unit=25_000)
-        _run_both_passes(
-            chrom, hits, specs, builders, aligner, ref_file, vcf_index,
-            max_variants, window_size, step_for, threads, align_kwargs,
-            progress,
+    if checkpoint is not None:
+        if shard_contigs is not None:
+            contigs = shard_contigs
+        else:
+            contigs = [chrom] if chrom is not None else ref_file.names
+        _checkpointed(
+            checkpoint, search, contigs, hits, builders, base_builder, ref,
+            arguments, variants, chrom, process_index, process_count,
+            guide_specs,
         )
+    elif shard_contigs is not None:
+        for name in shard_contigs:
+            search(name, hits)
     else:
-        _screened_passes(
-            chrom, hits, specs, builders, aligner, ref_file, vcf_index,
-            max_variants, window_size, step_for, threads, align_kwargs,
-            screen_device,
-        )
+        search(chrom, hits)
     try:
         _finalize(hits, max_overlap, dictionary, output, run_start, specs)
     finally:
@@ -217,11 +256,90 @@ def run(
             profiler.export_chrome_trace(str(Path(profile_dir) / "trace.json"))
 
 
+def _shard(dictionary, chrom, process_index, process_count):
+    """The contigs of process ``process_index`` of ``process_count``
+    (a deterministic whole-contig partition, ``MergeHitTables`` joins the
+    shards' tables), or None when the run is not sharded."""
+    if process_count is None:
+        if process_index is not None:
+            raise ValueError("--process-index requires --process-count")
+        return None
+    from calitas_tpu_torch.parallel.multihost import host_contig_partition
+
+    if process_index is None:
+        raise ValueError("--process-count requires --process-index")
+    if not 0 <= process_index < process_count:
+        raise ValueError(
+            f"process_index {process_index} out of range for "
+            f"process_count {process_count}"
+        )
+    if chrom is not None:
+        raise ValueError("--chrom cannot be combined with --process-count")
+    mine = host_contig_partition(
+        [(e.name, e.length) for e in dictionary.entries],
+        process_index, process_count,
+    )
+    logger.info(
+        "Multi-host shard %d/%d: %d of %d contigs.",
+        process_index, process_count, len(mine), len(dictionary),
+    )
+    return mine
+
+
+def _checkpointed(
+    checkpoint, search, contigs, hits, builders, base_builder, ref, arguments,
+    variants, chrom, process_index, process_count, guide_specs,
+):
+    """Search ``contigs`` one at a time, appending each finished contig's
+    hits to the checkpoint file, and skip the contigs it already holds;
+    every row, loaded or new, lands in ``hits``."""
+    from calitas_tpu_torch.search.checkpoint import CheckpointState
+    from calitas_tpu_torch.search.hits import md5_of_file
+    from calitas_tpu_torch.version import aligner_version
+
+    # Every input that shapes the table is in the fingerprint (the VCF by
+    # content, the aligner version, any contig or shard restriction), so
+    # a resume with changed inputs is refused instead of merging stale rows.
+    fingerprint = "|".join(
+        [
+            arguments, str(ref),
+            f"variants={variants}:"
+            f"{md5_of_file(variants) if variants is not None else ''}",
+            f"chrom={chrom}",
+            f"shard={process_index}/{process_count}",
+            f"version={aligner_version()}",
+        ]
+        + sorted(
+            gid + ":" + gstr + ":" + ",".join(aux)
+            for gid, gstr, aux in guide_specs
+        )
+    )
+    state = CheckpointState.open(checkpoint, fingerprint)
+    try:
+        if state.timestamp is not None:
+            for b in builders.values():  # resumed rows keep the run's start
+                b.timestamp = state.timestamp
+        else:
+            state.set_timestamp(base_builder.timestamp)
+        hits.extend(state.hits)
+        for name in contigs:
+            if state.is_done(name):
+                logger.info("Checkpoint: skipping completed contig %s.", name)
+                continue
+            contig_hits: list = []
+            search(name, contig_hits)
+            state.record(name, contig_hits)
+            hits.extend(contig_hits)
+    finally:
+        state.close()
+
+
 def _screened_passes(
     chrom, hits, specs, builders, aligner, ref_file, vcf_index, max_variants,
-    window_size, step_for, threads, align_kwargs, device,
+    window_size, step_for, threads, align_kwargs, device, screen, prestaged,
 ):
-    """Both passes on the device screen.  The variant feeds start before
+    """Both passes on the device screen (on ``screen`` and the
+    ``prestaged`` contigs when given).  The variant feeds start before
     the reference pass so the window builder and slot screen overlap it;
     an error in either pass closes every feed still producing."""
     feeds = _start_variant_feeds(
@@ -231,7 +349,8 @@ def _screened_passes(
     try:
         _screened_reference_pass(
             chrom, hits, specs, builders[specs[0][0]], aligner, ref_file,
-            window_size, step_for, threads, align_kwargs, device,
+            window_size, step_for, threads, align_kwargs, device, screen,
+            prestaged,
         )
         logger.info("Reference windows processed.")
         if feeds:
@@ -292,9 +411,10 @@ def _start_variant_feeds(
 
 def _screened_reference_pass(
     chrom, hits, specs, builder, aligner, ref_file, window_size, step_for,
-    threads, align_kwargs, device,
+    threads, align_kwargs, device, screen, prestaged,
 ):
-    """Pass 1 on the device screen (SearchReference.scala:527-564)."""
+    """Pass 1 on the device screen (SearchReference.scala:527-564), on
+    ``screen`` and the ``prestaged`` contigs when given."""
     from calitas_tpu_torch.ops.genome_screen import GenomeScreen
     from calitas_tpu_torch.parallel.screen_runner import (
         GuideTask,
@@ -316,12 +436,13 @@ def _screened_reference_pass(
         timestamp=builder.timestamp,
         aligner_version=builder.aligner_version,
     )
-    screen = GenomeScreen(aligner.scorer, device, window=window_size)
+    if screen is None:
+        screen = GenomeScreen(aligner.scorer, device, window=window_size)
     hits_progress = ProgressLogger(logger, noun="hits", verb="Collected", unit=25_000)
     for _task, wchrom, wstart, rows in screened_search(
         ref_file, chrom, tasks, aligner, screen=screen,
         window_size=window_size, hit_spec=hit_spec, threads=threads,
-        swallow_errors=True, **align_kwargs,
+        swallow_errors=True, prestaged=prestaged, **align_kwargs,
     ):
         # Columnar blocks append whole (the dedup reads their key arrays).
         if type(rows) is RenderedBlock:

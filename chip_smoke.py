@@ -21,7 +21,7 @@ Phases, each raising on failure:
    and off, windows 40/64/1000/1003/2500); times both at the main path's
    shape (window 1000, 20-base guide, one segment of the 40 Mb contig).
    Then each lane count L of the dual kernel (``_screen_dual_lanes``)
-   against the plain version at Q 1/2/21/23/47/48 on grids of 4,099
+   against the plain version at Q 1/2/21/23/24/47/48 on grids of 4,099
    windows whose last ones run past the genome's end, each L timed at
    config3's shape and at one 1 Gb segment's (64,512 windows over a 64 Mb
    genome) with its registers and spills, and at both shapes at every Q
@@ -40,10 +40,11 @@ Phases, each raising on failure:
    off); times the kernel at G 4/8/16 and the plain version at G 4 on one
    segment of the main path's shape.  Then each lane count L of the
    kernel (``_screen_multi_lanes``) against the plain version, ranges on
-   and off, at Q 1/2/21/23/47/48 (G 1/4/17, 4,099 windows whose last ones
+   and off, at Q 1/2/21/23/24/47/48 (G 1/4/17, 4,099 windows whose last ones
    run past the genome's end, min scores at INT32_MIN and INT32_MAX) and
-   on slot batches (B 8192 x T 64/128, G 1/4); at Q 20, each L's time
-   and the launcher's choice at (a) config5s (10,310 windows, G 4), (b)
+   on slot batches (B 8192 x T 64/128: G 1 at Q 20 and 24, G 4 at Q 23);
+   at Q 20, each L's time and the launcher's choice at (a) config5s
+   (10,310 windows, G 4), (b)
    config3's grid (G 4), (c) the variant pass's slot batches (B 8192 x T
    64/128, G 1/4) and (d) the launches between and beyond them (config5s's
    grid at G 2/8, a 2 Mb contig's 2,000 windows at G 4, slots of T 64 at
@@ -118,15 +119,46 @@ Phases, each raising on failure:
    card-filling shape (N = SMs x 2048) and the three screen kernels at
    their main-path shapes (the multi-guide kernel also at a variant slot
    batch, B 8192 x T 64, G 1), and prints each one's bound and share.
+14. Resident serving at 1 Gb: six seeded contigs at GRCh38's lengths of
+   chr1-chr5 and chrM (1,061,214,893 bases, a cut of
+   benchmarks/serve_bench.py's 3.1 Gb / 8-contig genome) with planted
+   sites of every request guide and about 1,027,000 SNVs (one per 1,033
+   bases, benchmarks/hg38_scale.py's density).  One
+   ``ResidentSearcher(engine="gpu", threads=8)`` stages the contigs and
+   indexes the VCF, warms up, and answers through ``serve_stdio`` in this
+   process: r1 config 3's guide, r2 serve_bench's second guide at
+   ``max_guide_diffs`` 4, r3 its third, r4 all three and
+   hg38_scale.py's fourth as one fused group, r5 the 24-base 5'-PAM
+   guide of phase 11, r6 r1 on chr5 alone, and r1 again.  Each reply must
+   be ok and each table must equal a fresh ``run()`` on the card
+   (time_stamp and aligner_version blanked); staging must run once per
+   contig at construction and never in a request; each single-guide
+   request must launch the dual kernel once per grid segment and r4 the
+   multi-guide kernel more than that, every request the multi-guide
+   kernel's slot batches, and no plain version may run on the card.
+   r5's widest launches of each kernel (Q 24: the dual kernel on a 1 Gb
+   segment's 64,512 windows, the multi-guide kernel on its slot batches),
+   and 8,192-row slot batches of T 64 and 128 with its guide, must equal
+   the plain versions bit for bit, and r5 on chrM, served, must equal
+   ``--engine host``'s table.  r1
+   as two ``--process-index`` shards merged by MergeHitTables, and as a
+   ``--checkpoint`` run and its resumption (every contig skipped, no
+   kernel launched) must equal r1's table.  Then ``python -m
+   calitas_tpu_torch Serve`` on config 2's 2 Mb contig, as a subprocess:
+   ready line, ping, one request equal to a fresh run, shutdown, exit 0
+   within 60 s, the CUDA route in its log.  Prints staging, VCF index
+   and warmup seconds, each request's seconds, rows and launches, and
+   the first request's time against the best warm one's.
 
 After the phases, passed or not, it stops every process it started and
 waits for each to end: the finish pool's workers, then the resource
 tracker of the pool's spawn context, then any other descendant.
 
 The line before the last is a JSON object describing the kernels (the
-launch counts are those of the main paths: phase 4 for the dual kernel,
-phases 6 and 7 for the multi-guide kernel, the gpu runs of phases 10 and
-11 for the row kernel, phase 13's roofline run for the probes; the row
+launch counts are those of the main paths: phases 4 and 14's requests
+for the dual kernel, phases 6, 7 and 14's requests for the multi-guide
+kernel, the gpu runs of phases 10 and 11 for the row kernel, phase 13's
+roofline run for the probes; the row
 kernel's times are those of the launcher's L at phase 9's shape (a), the
 list tools' per-row mode; each bound is that of the timed call's
 inputs); the last line is ``{"ok":
@@ -344,7 +376,7 @@ def kernel_vs_plain(torch, np, dp_cuda, dp_screen, gs, scorer, device):
 
 LANE_CASES = (  # (Q, window, gate): every L <= Q of each against the plain version
     (1, 2500, True), (2, 40, False), (21, 1000, True), (23, 1003, False),
-    (47, 64, True), (48, 2500, False),
+    (47, 64, True), (48, 2500, False), (24, 1000, True),  # Q 24: phase 14's r5
 )
 LANE_WINDOWS = 4099  # not a multiple of any block's window count
 LANE_NOISE = 1.03  # the launcher's L may be this much slower than the fastest
@@ -698,11 +730,11 @@ INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
 def multi_lanes_vs_plain(torch, np, dp_cuda, dp_screen, scorer, genome) -> int:
     """Phase 5: every lane count of the multi-guide kernel
     (``_screen_multi_lanes``) against the plain version, bit for bit: on
-    the lane split's edge cases (Q 1/2/21/23/47/48, G 1/4/17, gate on and
+    the lane split's edge cases (Q 1/2/21/23/24/47/48, G 1/4/17, gate on and
     off, 4,099 windows whose last ones run past the genome's end, ranges
     on and off, min scores at INT32_MIN and INT32_MAX beside ordinary
-    ones) and on slot batches (B 8192 x T 64/128, G 1 and 4); returns the
-    max_abs_err."""
+    ones) and on slot batches (B 8192 x T 64/128: G 1 at Q 20 and 24, G 4
+    at Q 23); returns the max_abs_err."""
     rng = np.random.default_rng(32)
     sk = dict(match=scorer.match_score, mismatch=scorer.mismatch_score,
               qgap=scorer.query_gap_score, tgap=scorer.target_gap_score)
@@ -755,7 +787,7 @@ def multi_lanes_vs_plain(torch, np, dp_cuda, dp_screen, scorer, genome) -> int:
         slots = masks[starts[:, None] + torch.arange(T, device=genome.device)]
         slots = slots.reshape(-1).contiguous()
         kw = dict(base0=0, step=T, n_windows=SLOT_B, window=T, pam_gate=False, **sk)
-        for G, Q in ((1, 20), (4, 23)):
+        for G, Q in ((1, 20), (4, 23), (1, 24)):
             qv = rng.integers(1, 16, (G, 2, Q)).astype(np.int32)
             max_err = max(max_err, check(f"slots B={SLOT_B} T={T} G={G} Q={Q}", slots, qv,
                                          thresholds(slots, qv, kw), kw))
@@ -1598,6 +1630,416 @@ def roofline_run(dp_cuda, probes, device):
     return roof, launches
 
 
+#: phase 14's genome: GRCh38's lengths of chr1-chr5 and chrM, a cut of
+#: benchmarks/serve_bench.py's 3.1 Gb / 8-contig genome to 1.06 Gb
+SERVE_CONTIGS = (("chr1", 248_956_422), ("chr2", 242_193_529), ("chr3", 198_295_559),
+                 ("chr4", 190_214_555), ("chr5", 181_538_259), ("chrM", 16_569))
+#: benchmarks/serve_bench.py's three guides and benchmarks/hg38_scale.py's fourth
+SERVE_GUIDES = (GUIDE, "ACGTACATGCTCGATACGACnrg", "TTGACCAAGCAAAACAGACCnrg",
+                "GCATTTCAGGAGCTACGTTAnrg")
+SNV_SPACING = 3_100_000_000 // 3_000_000  # benchmarks/hg38_scale.py: 3 M SNVs over 3.1 Gb
+
+
+def serve_inputs(np, tmp: Path, contigs) -> tuple:
+    """Phase 14's reference (FASTA in 60-base lines, .fai, .dict) and VCF:
+    seeded contigs with mutated sites of every request guide planted (the
+    3'-PAM guides by ``synthetic_genome``, 60 sites of ``G5`` after a
+    ``TTTV`` PAM per contig), and one seeded SNV per ``SNV_SPACING``
+    bases.  Returns (reference, VCF, SNV count)."""
+    import hashlib
+
+    from calitas_tpu_torch.core.sequence import revcomp
+    from calitas_tpu_torch.io.fasta import DictEntry, SequenceDictionary, build_fai, dict_path_for
+
+    ref, vcf = tmp / "serve1g.fa", tmp / "serve1g.vcf"
+    code = np.zeros(256, np.int64)
+    code[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+    entries, n_snv = [], 0
+    with open(ref, "wb") as fa, open(vcf, "w") as vf:
+        vf.write("##fileformat=VCFv4.2\n"
+                 '##INFO=<ID=AF,Number=A,Type=Float,Description="AF">\n'
+                 "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        for k, (name, n) in enumerate(contigs):
+            bases = synthetic_genome(np, n, 1400 + k, [g[:20] for g in SERVE_GUIDES])
+            rng = np.random.default_rng(1450 + k)
+            for _ in range(60):
+                site = list(G5[4:])
+                for _ in range(int(rng.integers(0, 5))):
+                    site[int(rng.integers(0, len(site)))] = "ACGT"[int(rng.integers(0, 4))]
+                seq = "TTT" + "ACG"[int(rng.integers(0, 3))] + "".join(site)
+                if rng.random() < 0.5:
+                    seq = revcomp(seq)
+                pos = int(rng.integers(0, n - len(seq)))
+                bases[pos : pos + len(seq)] = np.frombuffer(seq.encode(), np.uint8)
+            fa.write(f">{name}\n".encode())
+            full = n // 60
+            lines = np.full((full, 61), 10, np.uint8)  # newline in the last column
+            lines[:, :60] = bases[: full * 60].reshape(full, 60)
+            fa.write(memoryview(lines))
+            if n % 60:
+                fa.write(bases[full * 60 :].tobytes() + b"\n")
+            del lines
+            entries.append(DictEntry(name=name, length=n, assembly="serve1g",
+                                     md5=hashlib.md5(bases.tobytes()).hexdigest()))
+            m = n // SNV_SPACING
+            pos = np.arange(m, dtype=np.int64) * SNV_SPACING + rng.integers(1, SNV_SPACING + 1, m)
+            ref_b = bases[pos - 1]
+            alt = np.frombuffer(b"ACGT", np.uint8)[(code[ref_b] + rng.integers(1, 4, m)) % 4]
+            afs = rng.uniform(0.01, 0.5, m)
+            vf.write("".join(
+                f"{name}\t{p}\t.\t{chr(r)}\t{chr(a)}\t50\tPASS\tAF={af:.3f}\n"
+                for p, r, a, af in zip(pos.tolist(), ref_b.tolist(), alt.tolist(), afs.tolist())))
+            n_snv += m
+    build_fai(ref)
+    SequenceDictionary(entries).write(dict_path_for(ref))
+    return ref, vcf, n_snv
+
+
+def table_digest(path) -> tuple:
+    """(rows, sha256) of a table with time_stamp and aligner_version
+    blanked: tables of 10^5 rows compare without holding them."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    with open(path) as fh:
+        header = fh.readline()
+        cols = header.rstrip("\n").split("\t")
+        varying = [cols.index("time_stamp"), cols.index("aligner_version")]
+        digest.update(header.encode())
+        rows = 0
+        for line in fh:
+            f = line.rstrip("\n").split("\t")
+            for i in varying:
+                f[i] = ""
+            digest.update(("\t".join(f) + "\n").encode())
+            rows += 1
+    return rows, digest.hexdigest()
+
+
+def stdio(serve_stdio, searcher, requests: list) -> list:
+    """Replies of ``serve_stdio`` in this process to ``requests`` (the
+    ready line first)."""
+    import io
+
+    out = io.StringIO()
+    serve_stdio(searcher, stdin=io.StringIO("".join(json.dumps(r) + "\n" for r in requests)),
+                stdout=out)
+    return [json.loads(line) for line in out.getvalue().splitlines()]
+
+
+def grid_segments(gs, scorer, device, contigs, guide: str, max_guide_diffs: int = 5) -> int:
+    """Screen launches of one guide's reference pass over ``contigs``:
+    one per segment of each contig's window grid."""
+    screen = gs.GenomeScreen(scorer, device, window=1000)
+    step = 1000 - (len(guide) + max_guide_diffs + 3 - 1)
+    return sum(len(screen.segment_spans(len(screen.window_starts(n, step))))
+               for _name, n in contigs)
+
+
+def recording(taken: dict, name: str, wrapper):
+    """``wrapper`` (``dp_cuda.screen_dual`` or ``screen_multi``), keeping
+    in ``taken[name, window, emit_ranges]`` the inputs of its widest call
+    (most windows) at that window: ``(genome, qvals, other positional
+    arguments, keyword arguments)``.  The call itself is unchanged."""
+
+    def call(genome, qvals, *args, **kw):
+        key = (name, kw["window"], kw.get("emit_ranges"))
+        if key not in taken or kw["n_windows"] > taken[key][3]["n_windows"]:
+            taken[key] = (genome, qvals.copy(), [a.copy() for a in args], dict(kw))
+        return wrapper(genome, qvals, *args, **kw)
+
+    return call
+
+
+def served_vs_plain(torch, np, dp_cuda, dp_screen, taken: dict, masks, what: str) -> dict:
+    """Each kernel's wrapper against its plain version, bit for bit, on
+    the inputs of the widest launches a served request made (``taken``,
+    from :func:`recording`), and the multi-guide kernel on 8,192-row slot
+    batches of T 64 and 128 cut from ``masks`` (a resident contig) with
+    that request's guide.  Returns ``{kernel: max_abs_err}``."""
+    rng = np.random.default_rng(34)
+    cases = [(f"{what}'s", key, args) for key, args in taken.items()]
+    slot = next(((g, q, a, kw) for (n, _w, e), (g, q, a, kw) in taken.items()
+                 if n == "screen_multi" and e is False), None)
+    if slot is None:
+        raise AssertionError(f"{what} made no slot-batch launch")
+    _g, qv, (mss,), kw = slot
+    for T in (64, 128):
+        starts = torch.as_tensor(rng.integers(0, masks.numel() - T, SLOT_B), device=masks.device)
+        rows = (masks[starts[:, None] + torch.arange(T, device=masks.device)] & 15)
+        cases.append((f"{what}'s guide on seeded slots:", ("screen_multi", T, False),
+                      (rows.reshape(-1).contiguous(), qv, [mss],
+                       dict(kw, base0=0, step=T, n_windows=SLOT_B, window=T))))
+    errs = {"screen_dual": 0, "screen_multi": 0}
+    for label, (name, window, _emit), (genome, qvals, args, kw) in cases:
+        Q = qvals.shape[-1]
+        if name == "screen_dual":
+            got = dp_cuda.screen_dual(genome, qvals, **kw)
+            want = dp_screen.screen_dual_reference(genome, qvals, **kw)
+            lanes = dp_cuda.screen_dual_default_lanes(Q)
+        else:
+            got = dp_cuda.screen_multi(genome, qvals, *args, **kw)
+            want = dp_screen.screen_multi_reference(genome, qvals, *args, **kw)
+            lanes = dp_cuda.screen_multi_default_lanes(Q, kw["n_windows"], qvals.shape[0],
+                                                       kw["emit_ranges"])
+        torch.cuda.synchronize()
+        pairs = [(a, b) for a, b in zip(got, want) if a is not None]
+        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in pairs)
+        same = all(torch.equal(a, b) for a, b in pairs)
+        log(f"[serve] {label} {name} at Q={Q} window={window} windows={kw['n_windows']} "
+            f"gate={kw['pam_gate']} (launcher L={lanes}): bit-identical={same} "
+            f"max_abs_err={err}")
+        if not same:
+            raise AssertionError(f"{name} != plain: {label} inputs at window {window}")
+        errs[name] = max(errs[name], err)
+    if not {n for (n, _w, _e) in taken} >= {"screen_dual", "screen_multi"}:
+        raise AssertionError(f"{what} did not launch both kernels: {sorted(taken)}")
+    return errs
+
+
+def resident_serving(torch, np, dp_cuda, dp_screen, gs, scorer, device, tmp: Path,
+                     contigs=SERVE_CONTIGS) -> dict:
+    """Phase 14: a resident server on 1.06 Gb (GRCh38's chr1-5 and chrM)
+    with about 1,027,000 SNVs answers six requests through
+    ``serve_stdio``; each table must equal a fresh ``run()`` on the card,
+    staging must run once per contig and never in a request, every
+    request must launch its kernels and no plain version may run on the
+    card; r5's kernels must equal their plain versions on its own inputs
+    (:func:`served_vs_plain`) and r5 on chrM the host engine's table; r1
+    as two shards merged by MergeHitTables and as a checkpointed run (and
+    its resumption, which launches nothing) must equal r1; the ``Serve``
+    sub-command must answer on config 2's contig.  Returns the requests'
+    kernel launches and ``{kernel: max_abs_err}`` of those comparisons."""
+    from calitas_tpu_torch import cli, goldens
+    from calitas_tpu_torch.io import vcf as vcf_mod
+    from calitas_tpu_torch.serve import ResidentSearcher, serve_stdio
+    from calitas_tpu_torch.tools import search_reference as sr
+
+    t_phase = time.perf_counter()
+    logging.getLogger("calitas_tpu_torch").setLevel(logging.INFO)  # PassClock reads INFO lines
+    ref, vcf, n_snv = serve_inputs(np, tmp, contigs)
+    log(f"[serve] {len(contigs)} contigs, {sum(n for _c, n in contigs)} bases, and "
+        f"{n_snv} SNVs written in {time.perf_counter() - t_phase:.3f} s")
+
+    stage_s, index_s = [], []
+    orig_stage, orig_index = gs.GenomeScreen.stage, vcf_mod.VcfIndex.__init__
+
+    def timed_stage(self, bases):
+        t0 = time.perf_counter()
+        out = orig_stage(self, bases)
+        torch.cuda.synchronize()
+        stage_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_index(self, path):
+        t0 = time.perf_counter()
+        orig_index(self, path)
+        index_s.append(time.perf_counter() - t0)
+
+    reqs = {
+        "r1": dict(guide=GUIDE, guide_id="r1"),
+        "r2": dict(guide=SERVE_GUIDES[1], guide_id="r2", max_guide_diffs=4),
+        "r3": dict(guide=SERVE_GUIDES[2], guide_id="r3"),
+        "r4": dict(guide_specs=[[f"g{i}", g, []] for i, g in enumerate(SERVE_GUIDES)]),
+        "r5": dict(guide=G5, guide_id="r5"),
+        "r6": dict(guide=GUIDE, guide_id="r1", chrom="chr5"),
+        "r1 again": dict(guide=GUIDE, guide_id="r1"),
+    }
+    gs.GenomeScreen.stage, vcf_mod.VcfIndex.__init__ = timed_stage, timed_index
+    try:
+        t0 = time.perf_counter()
+        searcher = ResidentSearcher(ref, vcf, engine="gpu", device=device, threads=8)
+        build_s = time.perf_counter() - t0
+        resident = sum(a.numel() * a.element_size() for a in searcher._staged.values())
+        log(f"[serve] staging: {len(stage_s)} GenomeScreen.stage calls, {sum(stage_s):.3f} s "
+            f"({', '.join(f'{s:.3f}' for s in stage_s)}), {resident} bytes resident on "
+            f"{device}; VCF index {index_s[0]:.3f} s; constructor {build_s:.3f} s")
+        if len(stage_s) != len(contigs):
+            raise AssertionError(f"staging ran {len(stage_s)} times for {len(contigs)} contigs")
+        t0 = time.perf_counter()
+        searcher.warmup()
+        log(f"[serve] warmup {time.perf_counter() - t0:.3f} s")
+
+        seconds, rows, launches, passes = {}, {}, {}, {}
+        taken = {}  # r5's (Q 24) widest launches, held against the plain versions below
+        wrappers = dp_cuda.screen_dual, dp_cuda.screen_multi
+        dp_screen.reference_calls["cuda"] = 0
+        torch.cuda.reset_peak_memory_stats()
+        clock = PassClock()
+        for key, req in reqs.items():
+            n_stage = len(stage_s)
+            dp_cuda.reset_launches()
+            logging.getLogger("calitas_tpu_torch.SearchReference").addHandler(clock)
+            if key == "r5":
+                dp_cuda.screen_dual = recording(taken, "screen_dual", wrappers[0])
+                dp_cuda.screen_multi = recording(taken, "screen_multi", wrappers[1])
+            try:
+                replies = stdio(serve_stdio, searcher,
+                                [dict(req, output=str(tmp / f"{key}.tsv"))])
+            finally:
+                dp_cuda.screen_dual, dp_cuda.screen_multi = wrappers
+                logging.getLogger("calitas_tpu_torch.SearchReference").removeHandler(clock)
+            launches[key] = dict(dp_cuda.launches)
+            ready, reply = replies
+            if not (ready["ready"] and ready["engine"] == "gpu"
+                    and ready["staged_contigs"] == len(contigs)):
+                raise AssertionError(f"serve ready line {ready}")
+            if not reply["ok"]:
+                raise AssertionError(f"serve {key}: {reply}")
+            passes[key] = clock.passes()
+            if len(stage_s) != n_stage:
+                raise AssertionError(f"serve {key} staged a contig again")
+            seconds[key], rows[key] = reply["seconds"], reply["rows"]
+        plain_on_card = dp_screen.reference_calls["cuda"]
+        log(f"[serve] requests' peak device memory {torch.cuda.max_memory_allocated()} bytes")
+        errs = served_vs_plain(torch, np, dp_cuda, dp_screen, taken,
+                               searcher._staged[contigs[0][0]], "r5")
+        del taken
+        # r5 on chrM through the server against the host engine
+        r5m = dict(reqs["r5"], chrom=contigs[-1][0])
+        ok = stdio(serve_stdio, searcher, [dict(r5m, output=str(tmp / "r5m.tsv"))])[1]["ok"]
+        sr.run(output=tmp / "r5m_host.tsv", ref=ref, variants=vcf, threads=8, engine="host",
+               **r5m)
+        got, want = table_digest(tmp / "r5m.tsv"), table_digest(tmp / "r5m_host.tsv")
+        log(f"[serve] r5 on {r5m['chrom']}: served {got[0]} rows, --engine host {want[0]} "
+            f"rows, {'equal' if got == want else 'DIFFERENT'} tables")
+        if not ok or got != want or got[0] == 0:
+            raise AssertionError(f"r5 on {r5m['chrom']}: served {got}, host engine {want}")
+        ping, bye = stdio(serve_stdio, searcher, [{"cmd": "ping"}, {"cmd": "shutdown"}])[1:]
+        if not (ping["ready"] and bye.get("bye")):
+            raise AssertionError(f"serve ping/shutdown replies {ping}, {bye}")
+
+        # Every table against a fresh run with the same arguments.
+        common = dict(ref=ref, variants=vcf, threads=8, engine="gpu", device=device)
+        digests = {}
+        for key, req in reqs.items():
+            fresh_s = None  # "r1 again" is held against r1's fresh run
+            if key == "r1 again":
+                want = digests["r1"]
+            else:
+                t0 = time.perf_counter()
+                sr.run(output=tmp / "fresh.tsv", **common, **req)
+                fresh_s = time.perf_counter() - t0
+                want = digests[key] = table_digest(tmp / "fresh.tsv")
+            got = table_digest(tmp / f"{key}.tsv")
+            searched = [c for c in contigs if c[0] == req.get("chrom", c[0])]
+            guide = req.get("guide", SERVE_GUIDES[0])
+            segs = grid_segments(gs, scorer, device, searched, guide,
+                                 req.get("max_guide_diffs", 5))
+            got_l = launches[key]
+            log(f"[serve] {key}: {seconds[key]:.3f} s (reference pass {passes[key][0]:.3f} s, "
+                f"variant pass after it {passes[key][1]:.3f} s), {rows[key]} rows, launches "
+                f"screen_dual {got_l['screen_dual']} screen_multi {got_l['screen_multi']} "
+                f"(grid segments {segs}); fresh run {fresh_s} s, "
+                f"{'equal' if got == want else 'DIFFERENT'} table")
+            if got != want or got[0] != rows[key]:
+                raise AssertionError(f"serve {key}: table {got} differs from a fresh run's {want}")
+            if "guide_specs" in req:
+                ok = got_l["screen_dual"] == 0 and got_l["screen_multi"] > segs
+            else:
+                ok = got_l["screen_dual"] == segs and got_l["screen_multi"] >= 1
+            if not ok:
+                raise AssertionError(f"serve {key}: kernel launches {got_l}, grid segments {segs}")
+            (tmp / f"{key}.tsv").unlink()
+        if plain_on_card != 0:
+            raise AssertionError("a serve request ran the plain screen on the card")
+        warm = min(("r1 again", "r2", "r3"), key=seconds.get)
+        log(f"[serve] first request r1 {seconds['r1']:.3f} s against the best warm one "
+            f"({warm}) {seconds[warm]:.3f} s: ratio {seconds['r1'] / seconds[warm]:.3f}")
+        del searcher
+        torch.cuda.empty_cache()
+
+        # r1 as two whole-contig shards, merged
+        t0 = time.perf_counter()
+        shards = []
+        for i in range(2):
+            shards.append(tmp / f"shard{i}.tsv")
+            sr.run(output=shards[-1], process_index=i, process_count=2, **common,
+                   **reqs["r1"])
+        if cli.main(["MergeHitTables", "-i", *map(str, shards), "-o", str(tmp / "merged.tsv"),
+                     "-r", str(ref)]) != 0:
+            raise AssertionError("MergeHitTables failed")
+        merged = table_digest(tmp / "merged.tsv")
+        log(f"[serve] r1 as 2 shards ({', '.join(str(table_digest(s)[0]) for s in shards)} "
+            f"rows) merged: {merged[0]} rows, {time.perf_counter() - t0:.3f} s")
+        if merged != digests["r1"]:
+            raise AssertionError("the merged shards differ from r1's table")
+
+        # r1 checkpointed, then resumed from the complete checkpoint
+        skipped = []
+
+        class Skips(logging.Handler):
+            def emit(self, record):
+                if "skipping completed contig" in record.getMessage():
+                    skipped.append(record.getMessage())
+
+        ck = tmp / "serve_ck.jsonl"
+        t0 = time.perf_counter()
+        sr.run(output=tmp / "ck1.tsv", checkpoint=ck, **common, **reqs["r1"])
+        ck_s = time.perf_counter() - t0
+        handler = Skips(logging.INFO)
+        logging.getLogger("calitas_tpu_torch.SearchReference").addHandler(handler)
+        try:
+            dp_cuda.reset_launches()
+            t0 = time.perf_counter()
+            sr.run(output=tmp / "ck2.tsv", checkpoint=ck, **common, **reqs["r1"])
+            resume_s = time.perf_counter() - t0
+            resumed_launches = dict(dp_cuda.launches)
+        finally:
+            logging.getLogger("calitas_tpu_torch.SearchReference").removeHandler(handler)
+        log(f"[serve] r1 checkpointed {ck_s:.3f} s ({ck.stat().st_size} bytes of state), "
+            f"resumed {resume_s:.3f} s: {len(skipped)} contigs skipped, launches "
+            f"{resumed_launches}")
+        for name in ("ck1.tsv", "ck2.tsv"):
+            if table_digest(tmp / name) != digests["r1"]:
+                raise AssertionError(f"the checkpointed run's {name} differs from r1's table")
+        if len(skipped) != len(contigs) or any(resumed_launches.values()):
+            raise AssertionError(f"resumed run: {skipped}, launches {resumed_launches}")
+    finally:
+        gs.GenomeScreen.stage, vcf_mod.VcfIndex.__init__ = orig_stage, orig_index
+
+    # The Serve sub-command over pipes, on config 2's 2 Mb contig
+    c2 = goldens.build_ref(tmp, 2_000_000, 2, "c2ref")
+    sr.run(ref=c2, guide=GUIDE, guide_id="r1", output=tmp / "c2.tsv", threads=1,
+           engine="gpu", device=device)
+    requests = [{"cmd": "ping"}, {"guide": GUIDE, "guide_id": "r1"}, {"cmd": "shutdown"}]
+    t0 = time.perf_counter()
+    with open(tmp / "serve.err", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "calitas_tpu_torch", "Serve", "-r", str(c2), "-t", "1",
+             "--engine", "gpu", "--device", str(device)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err, text=True, cwd=ROOT,
+        )
+        try:
+            out, _ = proc.communicate("".join(json.dumps(r) + "\n" for r in requests), timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    sub_s = time.perf_counter() - t0
+    stderr = (tmp / "serve.err").read_text()
+    replies = [json.loads(line) for line in out.splitlines()]
+    route = f"on {device} -> " + ("CUDA kernel" if device.type == "cuda" else "plain")
+    (tmp / "c2_serve.tsv").write_text(replies[2]["table"] if len(replies) > 2 else "")
+    ok = (proc.returncode == 0 and len(replies) == 4 and replies[0]["engine"] == "gpu"
+          and replies[1]["ready"] and replies[2]["ok"] and replies[3].get("bye")
+          and table_digest(tmp / "c2_serve.tsv") == table_digest(tmp / "c2.tsv"))
+    log(f"[serve] Serve sub-command: exit {proc.returncode} after {sub_s:.3f} s, "
+        f"{len(replies)} replies, request {replies[2].get('seconds') if len(replies) > 2 else None} s, "
+        f"{replies[2].get('rows') if len(replies) > 2 else None} rows; route logged: "
+        f"{route in stderr}")
+    if not ok or route not in stderr:
+        raise AssertionError(f"Serve sub-command: {replies[:2]}, stderr tail {stderr[-2000:]}")
+    import resource
+
+    log(f"[serve] phase {time.perf_counter() - t_phase:.3f} s; this process's peak "
+        f"resident memory so far: {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss} kB")
+    total = collections.Counter()
+    for per in launches.values():
+        total.update(per)
+    return dict(total), errs
+
+
 def own_processes() -> list:
     """(pid, state, command line) of every process descended from this
     one, read from /proc."""
@@ -1806,6 +2248,16 @@ def main() -> int:
             probe_err, probe_ms = probes_vs_plain(torch, np, dp_cuda, probes, device)
             roof, probe_launches = roofline_run(dp_cuda, probes, device)
             phase_s["13 probes and roofline"] = time.perf_counter() - t0
+
+            # 14. Resident serving at 1 Gb
+            t0 = time.perf_counter()
+            serve_launches, serve_errs = resident_serving(torch, np, dp_cuda, dp_screen, gs,
+                                                          scorer, device, tmp)
+            dual_launches += serve_launches["screen_dual"]
+            multi_launches += serve_launches["screen_multi"]
+            max_err = max(max_err, serve_errs["screen_dual"])
+            multi_err = max(multi_err, serve_errs["screen_multi"])
+            phase_s["14 resident serving"] = time.perf_counter() - t0
     finally:
         stop_processes(host_pool)
 

@@ -23,6 +23,7 @@ from calitas_tpu.io import fasta as jax_fasta
 from calitas_tpu.io import tsv as jax_tsv
 from calitas_tpu.io import vcf as jax_vcf
 from calitas_tpu.search.hits import HitBuilder as JaxHitBuilder
+from calitas_tpu.search.hits import ReferenceHit as JaxReferenceHit
 from calitas_tpu_torch import goldens
 from calitas_tpu_torch.align.batch import finish_windows
 from calitas_tpu_torch.align.engine import SequentialAligner
@@ -261,6 +262,76 @@ def test_native_batched_finish_and_rendered_rows(tmp_path, seed):
         rows.append([tsv.render_row(builder.build(a), fields)
                      for w in finish for a in w])
     assert rows[0] == rows[1] and len(rows[0]) >= 10
+
+
+def _random_hit_rows(rng, names, n) -> list:
+    """``n`` seeded ReferenceHit field dicts over contigs ``names``, with
+    repeated sort keys (chromosome, start, strand, score) among them."""
+    rows = []
+    for _ in range(n):
+        row = {}
+        for f in dataclasses.fields(ReferenceHit):
+            hint = str(f.type)
+            if f.name == "chromosome":
+                v = str(rng.choice(names))
+            elif f.name == "strand":
+                v = str(rng.choice(["+", "-"]))
+            elif f.name == "cigar":
+                v = f"{int(rng.integers(18, 24))}="
+            elif "Optional" in hint and rng.random() < 0.4:
+                v = None
+            elif "float" in hint:
+                v = float(rng.uniform(0.001, 0.5))
+            elif "int" in hint:
+                v = int(rng.integers(0, 200))
+            else:
+                v = "".join(rng.choice(list("ACGTacgt"), int(rng.integers(1, 12))))
+            row[f.name] = v
+        rows.append(row)
+    return rows
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_contig_partition_and_merge(tmp_path, seed):
+    """parallel/multihost.py: the whole-contig partition equals the JAX
+    package's over seeded dictionaries, and merge_host_outputs writes the
+    same file from the same per-shard tables (seed 2 is large enough for
+    the sort's array path)."""
+    from calitas_tpu.parallel import multihost as jax_multihost
+    from calitas_tpu_torch.parallel import multihost
+
+    rng = np.random.default_rng(seed)
+    # lengths in whole thousands, so that ties fall to the name order
+    contigs = [(f"chr{i}", 1000 * int(rng.integers(1, 6)))
+               for i in range(int(rng.integers(3, 12)))]
+    for count in range(1, 6):
+        parts = [multihost.host_contig_partition(contigs, i, count) for i in range(count)]
+        assert parts == [jax_multihost.host_contig_partition(contigs, i, count)
+                         for i in range(count)]
+        assert sorted(c for p in parts for c in p) == sorted(c for c, _ in contigs)
+
+    b = fasta.ReferenceSetBuilder(assembly="mh")
+    for name, _length in contigs:
+        b.add(name).add("ACGT" * 10)
+    ref = b.to_file(tmp_path / "ref.fa")
+    rows = _random_hit_rows(rng, [c for c, _ in contigs], 5_000 if seed == 2 else 300)
+    shards = []
+    for k in range(3):
+        path = tmp_path / f"shard{k}.txt"
+        writer = jax_tsv.MetricWriter(open(path, "w"), JaxReferenceHit)
+        writer.write_all([JaxReferenceHit(**r) for r in rows[k::3]])
+        writer.close()
+        shards.append(path)
+    n_mine = multihost.merge_host_outputs(
+        shards, fasta.extract_dictionary(ref), tmp_path / "mine.txt")
+    n_ref = jax_multihost.merge_host_outputs(
+        shards, jax_fasta.extract_dictionary(ref), tmp_path / "ref.txt")
+    assert n_mine == n_ref == len(rows)
+    assert (tmp_path / "mine.txt").read_bytes() == (tmp_path / "ref.txt").read_bytes()
+    # without a reference: sorted by chromosome name
+    multihost.merge_host_outputs(shards, None, tmp_path / "m2.txt")
+    jax_multihost.merge_host_outputs(shards, None, tmp_path / "r2.txt")
+    assert (tmp_path / "m2.txt").read_bytes() == (tmp_path / "r2.txt").read_bytes()
 
 
 def _run_configs(out: Path):

@@ -2,7 +2,8 @@
 ``chip_smoke.py`` imports ``jax`` or the JAX package ``calitas_tpu``, nor
 loads a file of ``benchmarks/`` by path.  An AST scan, one case per file;
 ``tests/test_torch_no_jax.py`` runs the port where neither can be
-imported."""
+imported.  The host half's modules import no torch, checked in a fresh
+interpreter."""
 
 import ast
 from pathlib import Path
@@ -65,3 +66,28 @@ def test_the_scan_finds_what_it_forbids():
 @pytest.mark.parametrize("path", FILES)
 def test_imports_neither_jax_nor_the_jax_package(path):
     assert offences((ROOT / path).read_text()) == []
+
+
+#: the port's host half: the finish pool's spawned workers import these,
+#: and they start without torch
+HOST_MODULES = (
+    "version", "utils", "core.cigar", "core.guide", "core.scoring",
+    "core.sequence", "io.bgzf", "io.fasta", "io.tsv", "io.vcf", "native",
+    "align.alignment", "align.batch", "align.engine", "align.guide_alignment",
+    "align.oracle", "search.windows", "search.hits", "search.checkpoint",
+    "parallel.host_pool", "parallel.multihost", "tools.prepare_vcf",
+)
+
+
+def test_host_modules_import_no_torch():
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        + "".join(f"import calitas_tpu_torch.{m}\n" for m in HOST_MODULES)
+        + "print(sorted(m for m in sys.modules if m == 'torch' or m.startswith('torch.')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True).stdout
+    assert out.strip() == "[]"
