@@ -13,6 +13,9 @@ and on Serve.  PrepareVcf and MergeHitTables are host-only.
     python -m calitas_tpu_torch SearchReference ... --checkpoint STATE.jsonl
     python -m calitas_tpu_torch SearchReference ... -o SHARD_I.txt \\
         --process-index I --process-count N
+    RANK=I WORLD_SIZE=N MASTER_ADDR=HOST MASTER_PORT=PORT \\
+        python -m calitas_tpu_torch SearchReference ... -o SHARD_I.txt \\
+        --distributed
     python -m calitas_tpu_torch MergeHitTables -i SHARD_0.txt SHARD_1.txt \\
         -o OUT.txt -r REF.fa
     python -m calitas_tpu_torch Serve -r REF.fa [-v VARIANTS.vcf] --engine gpu
@@ -30,13 +33,6 @@ import sys
 
 from calitas_tpu_torch.core.scoring import Defaults
 from calitas_tpu_torch.device import ENGINES
-
-#: reference CLI flags whose features the port does not have yet, and the
-#: ROADMAP item that brings each
-_NOT_PORTED = {
-    "distributed": "--distributed: ROADMAP Queue 1 item 5",
-}
-
 
 class _Once(argparse.Action):
     """Reject a repeated single-valued flag instead of silently keeping
@@ -174,7 +170,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "(0-based; with --process-count).")
     sr.add_argument("--process-count", type=int, default=None,
                     help="Number of shards; MergeHitTables joins their tables.")
-    sr.add_argument("--distributed", action="store_true", help="Not ported yet.")
+    sr.add_argument("--distributed", action="store_true",
+                    help="Initialize torch.distributed from the environment "
+                         "(MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, as "
+                         "torchrun sets them); process index/count default "
+                         "to the rank and the world size.")
 
     ar = sub.add_parser(
         "AlignToReference",
@@ -296,10 +296,6 @@ def main(argv: list[str] | None = None) -> int:
 def _search_reference(args) -> int:
     from calitas_tpu_torch.tools import search_reference
 
-    for dest, what in _NOT_PORTED.items():
-        value = getattr(args, dest)
-        if value is not None and value is not False:
-            raise NotImplementedError(what)
     guide_specs = None
     if args.guide_file is not None:
         if args.guide is not None or args.guide_id is not None:
@@ -340,6 +336,7 @@ def _search_reference(args) -> int:
         checkpoint=args.checkpoint,
         process_index=args.process_index,
         process_count=args.process_count,
+        distributed=args.distributed,
     )
     return 0
 

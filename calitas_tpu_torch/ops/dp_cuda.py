@@ -17,7 +17,9 @@ the two: callers choose the route before any launch with
 Each kernel is built from the repository's source with ``nvcc`` at first
 use, into ``csrc/build/`` (git-ignored), keyed by a hash of the source
 and flags, and loaded with ``ctypes`` through its plain C interface.
-:func:`build_all` starts one ``nvcc`` per source, all at once.
+:func:`build_all` starts one ``nvcc`` per source, all at once.  A kernel
+that does not build, load or launch raises :class:`KernelError`, which no
+caller degrades on (``utils.degradable``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from calitas_tpu_torch.ops.dp_screen import (
     screen_multi_reference,
     screen_rows_reference,
 )
+from calitas_tpu_torch.utils import KernelError
 
 logger = logging.getLogger("calitas_tpu_torch.screen")
 
@@ -103,7 +106,7 @@ def _nvcc() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin)")
+    raise KernelError("nvcc not found (PATH or /usr/local/cuda/bin)")
 
 
 def _lib_path(name: str) -> Path:
@@ -120,8 +123,9 @@ def _lib_path(name: str) -> Path:
 def build_all(names) -> dict:
     """The kernel libraries ``{name: path}``, compiling with one ``nvcc``
     per source, all started together, unless a build of this exact source
-    and flag set exists.  Raises with nvcc's stderr on failure.  ptxas's
-    register and spill report goes beside each as ``<lib>.log``."""
+    and flag set exists.  Raises :class:`KernelError` with nvcc's stderr on
+    failure.  ptxas's register and spill report goes beside each as
+    ``<lib>.log``."""
     libs = {name: _lib_path(name) for name in names}
     procs = {}
     for name, lib in libs.items():
@@ -147,7 +151,7 @@ def build_all(names) -> dict:
         libs[name].with_name(libs[name].name + ".log").write_text(err)
         os.replace(tmp, libs[name])
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelError("\n".join(failed))
     return libs
 
 
@@ -208,7 +212,10 @@ def library(name: str) -> ctypes.CDLL:
             for n, path in build_all(
                 tuple(n for n in SOURCES if n not in _libs)
             ).items():
-                lib = ctypes.CDLL(str(path))
+                try:
+                    lib = ctypes.CDLL(str(path))
+                except OSError as ex:
+                    raise KernelError(f"cannot load {path}: {ex}") from ex
                 _bind(lib, n)
                 _libs[n] = lib
     return _libs[name]
@@ -276,7 +283,7 @@ def log_route(what: str, q_len: int, device) -> bool:
 def _raise_on(lib, err: int, what: str):
     if err != 0:
         msg = lib.calitas_cuda_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+        raise KernelError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
 def screen_dual(
@@ -580,7 +587,7 @@ def screen_rows(
     (:func:`screen_rows_default_lanes`); CPU tensors run the plain
     version.  On CUDA, Q > 48 raises NotImplementedError, and a score set
     whose end shift ``Q * mismatch`` (or NEG_INF shifted by it) leaves
-    int32 raises RuntimeError: the kernel refuses it, as the dual kernel
+    int32 raises KernelError: the kernel refuses it, as the dual kernel
     does, and nothing falls back."""
     return _screen_rows(qmasks, tmasks, lengths, min_scores, None, dict(
         match=match, mismatch=mismatch, qgap=qgap, tgap=tgap))

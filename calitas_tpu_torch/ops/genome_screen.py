@@ -13,12 +13,20 @@ multi-guide kernel too (:func:`screen_slots_multi`).  A query longer than
 the kernels take (``dp_cuda.Q_MAX``) runs the plain PyTorch screen on the
 same device instead, by the static rule of ``dp_cuda.uses_kernel``.
 
+Across a device mesh (``parallel/mesh.py``), :class:`ShardedGenomeScreen`
+stages each contig once per distinct device and splits every segment's
+windows into contiguous spans, one per mesh entry, each launched on that
+entry's own CUDA stream; the sharded slot batches split their rows the
+same way.  Flags and ranges are bit-identical to the one-device screen.
+
 Strand handling: screening query q against revcomp(window) is equivalent
 to screening revcomp(q) against the window, so both strands run against
 the same forward genome with two queries.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -339,22 +347,25 @@ class GenomeScreen:
         if not spans:
             return []
         genome, qvals, gate = self._prepare(genome, [(dp_query, dp_query_rc)], pam_spec)
-        out = []
-        for i0, n_seg in spans:
-            dev_out = self._screen_span(
-                genome, qvals[0], gate, i0 * step, n_seg, step, min_score
-            )
-            out.append((i0, n_seg, dp_cuda.readback(dev_out, _chain_result(n_seg))))
-        return out
 
-    def _screen_span_multi(
-        self, genome, qvals, min_scores, ms_dev, pam_gate, base0, n, step
-    ):
+        def launch(g, s0, n):
+            return self._screen_span(g, qvals[0], gate, s0 * step, n, step, min_score)
+
+        return [(i0, n_seg, self._segment(genome, i0, n_seg, launch))
+                for i0, n_seg in spans]
+
+    def _segment(self, genome, i0: int, n: int, launch):
+        """``resolve`` of windows [i0, i0 + n): ``launch(genome, i0, n)``'s
+        device results, read back without blocking (``dp_cuda.readback``)
+        as (chain flags [..., 2, n] bool, ranges [..., 2, n, 2] uint8)."""
+        return dp_cuda.readback(launch(genome, i0, n), _chain_result(n))
+
+    def _screen_span_multi(self, genome, qvals, min_scores, pam_gate, base0, n, step):
         """One multi-guide screen over windows [base0/step, +n), routed
         as :meth:`_screen_span`: device tensors of bit-packed flags [G, 2,
-        ceil(n/8)] and coarse ranges [G, 2, n, 2].  ``ms_dev`` is
-        ``min_scores`` as a [G, 1, 1] tensor on the device."""
+        ceil(n/8)] and coarse ranges [G, 2, n, 2]."""
         s = self.scorer
+        ms_dev = dp_cuda.to_device(min_scores.reshape(-1, 1, 1), genome.device)
         best, ranges = _multi_screen(qvals, genome.device)(
             genome, qvals, min_scores, base0=base0, step=step, n_windows=n,
             window=self.window, match=s.match_score,
@@ -387,14 +398,12 @@ class GenomeScreen:
             return []
         genome, qvals, gate = self._prepare(genome, dp_queries, pam_spec)
         ms = np.asarray(min_scores, dtype=np.int32)
-        ms_dev = dp_cuda.to_device(ms.reshape(-1, 1, 1), self.device)
-        out = []
-        for i0, n_seg in spans:
-            dev_out = self._screen_span_multi(
-                genome, qvals, ms, ms_dev, gate, i0 * step, n_seg, step
-            )
-            out.append((i0, n_seg, dp_cuda.readback(dev_out, _chain_result(n_seg))))
-        return out
+
+        def launch(g, s0, n):
+            return self._screen_span_multi(g, qvals, ms, gate, s0 * step, n, step)
+
+        return [(i0, n_seg, self._segment(genome, i0, n_seg, launch))
+                for i0, n_seg in spans]
 
 
 def _multi_screen(qvals, device):
@@ -438,11 +447,14 @@ def screen_contig_multi(
     return _unpack_flag_bits(_pack_padded(best >= ms_dev).cpu().numpy(), n)
 
 
-def slot_batch_unit(any_kernel: bool) -> int:
+def slot_batch_unit(any_kernel: bool, mesh=None) -> int:
     """Row granularity of one slot batch: :data:`BATCH_UNIT` rows when a
     group runs the CUDA kernel (the reference's block), else the flag
-    packer's 8."""
-    return BATCH_UNIT if any_kernel else 8
+    packer's 8; per mesh entry when the batch is split over a ``mesh``."""
+    unit = BATCH_UNIT if any_kernel else 8
+    if mesh is not None:
+        unit *= len(mesh)
+    return unit
 
 
 def _slot_flags_multi(scorer: Scorer, tmasks: torch.Tensor, qvals, min_scores):
@@ -472,18 +484,185 @@ def screen_slots_multi(
     tmasks: np.ndarray,  # [B, T] uint8, B a multiple of 8
     groups,  # [(qvals [G, 2, Q] int32, min_scores [G]), ...]
     device,
+    mesh=None,
 ) -> list:
     """Screen one slot batch for several same-length guide groups: the
     batch goes to the device once, and each group costs one launch plus
     one bit-packed readback.  Returns one zero-arg resolver per group;
     resolving waits for that group's readback and returns [G, B] bool
-    flags."""
-    tm = dp_cuda.to_device(tmasks.astype(np.uint8, copy=False), device)
-    B = tm.shape[0]
-    return [
-        dp_cuda.readback(
-            (_slot_flags_multi(scorer, tm, qvals, min_scores),),
-            lambda packed: _unpack_flag_bits(packed, B),
+    flags.
+
+    With a ``mesh`` of two or more entries (``parallel/mesh.py``) the
+    rows split into contiguous spans, one per entry (:func:`mesh_spans`):
+    each span goes to its entry's device and every group launches on it,
+    on that entry's own stream; a resolver concatenates its group's spans
+    in row order.  This is the counterpart of the reference's
+    ``make_sharded_slot_flags``; the flags are bit-identical to the
+    one-device screen's."""
+    tmasks = tmasks.astype(np.uint8, copy=False)
+    B = tmasks.shape[0]
+    if mesh is None or len(mesh) < 2:
+        entries = [(torch.device(device), None, 0, B)]
+    else:
+        streams = _mesh_streams(mesh)
+        entries = [(mesh[k], streams[k], r0, n) for k, r0, n in mesh_spans(len(mesh), 0, B)]
+    per_group = [[] for _ in groups]
+    for dev, stream, r0, n in entries:
+        with _on_stream(stream, dev):
+            tm = dp_cuda.to_device(tmasks[r0 : r0 + n], dev)
+            for resolves, (qvals, min_scores) in zip(per_group, groups):
+                resolves.append(dp_cuda.readback(
+                    (_slot_flags_multi(scorer, tm, qvals, min_scores),),
+                    lambda packed, n=n: _unpack_flag_bits(packed, n),
+                ))
+    return [_concat_resolve(resolves, _cat_axis_last) for resolves in per_group]
+
+
+# ---------------------------------------------------------------------------
+# The window split over a device mesh
+# ---------------------------------------------------------------------------
+
+def mesh_spans(n_entries: int, i0: int, n: int) -> list:
+    """``(entry, first, count)`` of each span of the n items (windows or
+    slot rows) from ``i0`` split over ``n_entries`` mesh entries:
+    contiguous, in order, each a whole number of bytes of packed flags (a
+    multiple of 8 items) but the last; entries past the last item get no
+    span (the reference's live-batch clip)."""
+    per = -(-n // n_entries)
+    per = -(-per // 8) * 8
+    return [(k, i0 + k * per, min(per, n - k * per))
+            for k in range(n_entries) if k * per < n]
+
+
+def _mesh_streams(mesh) -> list:
+    """One new stream per CUDA entry of ``mesh`` (None for a CPU entry):
+    two entries on one card get two streams."""
+    return [torch.cuda.Stream(device=d) if d.type == "cuda" else None for d in mesh]
+
+
+@contextlib.contextmanager
+def _on_stream(stream, dev, *inputs):
+    """Run the block on ``stream``, a side stream of CUDA device ``dev``
+    (with that device current: the kernels launch on the thread's current
+    device), after all that the current stream of ``dev`` has queued so
+    far; ``inputs``, made on that stream, stay allocated until ``stream``
+    is done with them.  With no stream (a CPU entry) the block just runs."""
+    if stream is None:
+        yield
+        return
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    for t in inputs:
+        t.record_stream(stream)
+    with torch.cuda.stream(stream):
+        yield
+
+
+def _cat_axis_last(parts):
+    return np.concatenate(parts, axis=-1)
+
+
+def _cat_chain_results(parts):
+    """Spans' (chain flags [..., 2, n_k], ranges [..., 2, n_k, 2]) joined
+    in window order."""
+    return (np.concatenate([f for f, _r in parts], axis=-1),
+            np.concatenate([r for _f, r in parts], axis=-2))
+
+
+def _concat_resolve(resolves: list, cat):
+    """One ``resolve`` over several spans' resolves, joined by ``cat``;
+    a single span resolves as it is."""
+    if len(resolves) == 1:
+        return resolves[0]
+    return lambda: cat([r() for r in resolves])
+
+
+class ShardedGenomeScreen(GenomeScreen):
+    """:class:`GenomeScreen` over a device mesh (``parallel/mesh.py``): the
+    counterpart of the reference's ``ShardedGenomeScreen`` and its
+    ``shard_map`` programs ``make_sharded_grid_screen[_multi]``.
+
+    Same interface and bit-identical output (PAM gate, per-chain flags,
+    coarse ranges).  :meth:`stage` returns ``{device: genome}``, the
+    contig staged once per distinct device of the mesh; the screens also
+    take a one-device genome (a resident contig staged by a
+    :class:`GenomeScreen`) and copy it to the other devices.  Every
+    segment of :meth:`GenomeScreen.segment_spans` splits into contiguous
+    spans, one per mesh entry (:func:`mesh_spans`), each launched on that
+    entry's own stream; a segment's ``resolve`` joins its spans in window
+    order.  Entries may repeat a device: ``(cuda:0,) * 4`` runs four
+    streams on one card, which share the one staged contig."""
+
+    def __init__(self, scorer: Scorer, mesh, window: int = 1024,
+                 batch_windows: int = 8192):
+        mesh = tuple(torch.device(d) for d in mesh)
+        if not mesh:
+            raise ValueError("a ShardedGenomeScreen needs a mesh of one or more devices")
+        super().__init__(scorer, mesh[0], window=window, batch_windows=batch_windows)
+        self.mesh = mesh
+        self._streams = _mesh_streams(mesh)
+
+    def stage(self, contig_bases: np.ndarray) -> dict:
+        """The contig uploaded as :meth:`GenomeScreen.stage` does, to the
+        first device, then copied to each other distinct device of the
+        mesh: ``{device: genome}``."""
+        return self._replicas(super().stage(contig_bases))
+
+    def _replicas(self, genome) -> dict:
+        if isinstance(genome, dict):
+            return genome
+        out = {}
+        for dev in self.mesh:
+            if dev not in out:
+                if genome.device == dev:
+                    out[dev] = genome
+                    continue
+                with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                    out[dev] = genome.to(dev)
+        return out
+
+    def _prepare(self, genome, dp_queries, pam_spec):
+        """:meth:`GenomeScreen._prepare` on every device's replica:
+        ``({device: annotated genome}, qvals, gate)``."""
+        out = {}
+        for dev, g in self._replicas(genome).items():
+            out[dev], qvals, gate = super()._prepare(g, dp_queries, pam_spec)
+        return out, qvals, gate
+
+    def _segment(self, genome: dict, i0: int, n: int, launch):
+        """Windows [i0, i0 + n) as one span per mesh entry, each launched
+        by ``launch(replica, first, count)`` on the entry's stream after
+        the replica's annotation, and read back on that stream."""
+        resolves = []
+        for k, s0, n_k in mesh_spans(len(self.mesh), i0, n):
+            dev = self.mesh[k]
+            with _on_stream(self._streams[k], dev, genome[dev]):
+                resolves.append(super()._segment(genome[dev], s0, n_k, launch))
+        return _concat_resolve(resolves, _cat_chain_results)
+
+    def screen_contig(
+        self,
+        genome,
+        contig_len: int,
+        step: int,
+        dp_query: str,
+        dp_query_rc: str,
+        min_score: int,
+        pam_spec=None,
+        return_chains: bool = False,
+        return_ranges: bool = False,
+    ):
+        """:meth:`GenomeScreen.screen_contig` over the mesh: the whole
+        window grid as one segment split into the entries' spans."""
+        n = len(self.window_starts(contig_len, step))
+        if n == 0:
+            return self._empty_result(return_chains, return_ranges)
+        [(_i0, _n, resolve)] = self.screen_contig_async(
+            genome, contig_len, step, dp_query, dp_query_rc, min_score,
+            pam_spec=pam_spec, segments=1,
         )
-        for qvals, min_scores in groups
-    ]
+        chain_flags, ranges = resolve()
+        if return_ranges:
+            return chain_flags, ranges
+        if return_chains:
+            return chain_flags
+        return chain_flags.any(axis=0)

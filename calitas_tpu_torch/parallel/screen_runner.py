@@ -15,10 +15,21 @@ per segment for the whole group, and a single guide runs the dual-chain
 kernel.  Each segment's readback resolves once; every guide of the group
 reads its own slice of that one result.  A group whose DP query is longer
 than the kernels take runs the plain PyTorch screen on the same device;
-the route is chosen and logged once per group, before any launch.
+the route is chosen and logged once per group, before any launch.  With
+a mesh of two or more devices (``parallel/mesh.py``) the screen is a
+:class:`~calitas_tpu_torch.ops.genome_screen.ShardedGenomeScreen`, which
+splits each segment into one span per mesh entry.
 
-Device, build and launch errors propagate: nothing here degrades to the
-host engine.
+A device fault degrades, as the reference's does
+(``utils.degradable``), and each one logs a WARNING and counts one in
+``utils.DEGRADED``: a contig whose staging fails, or a guide group whose
+segmented screen does not launch, is aligned on the host window by
+window; a segment whose readback fails sends that segment and every
+later one of the contig to the host unscreened, while earlier segments
+keep their flags.  The host finish of an unscreened window is the host
+engine's, so the table does not change.  A kernel that does not build or
+launch (``utils.KernelError``), a query the kernels do not take
+(``NotImplementedError``) and programming errors propagate.
 """
 
 from __future__ import annotations
@@ -35,7 +46,12 @@ from calitas_tpu_torch.core.guide import Guide
 from calitas_tpu_torch.core.sequence import revcomp
 from calitas_tpu_torch.io.fasta import IndexedFasta
 from calitas_tpu_torch.ops import dp_cuda
-from calitas_tpu_torch.ops.genome_screen import GenomeScreen, range_block
+from calitas_tpu_torch.ops.genome_screen import (
+    GenomeScreen,
+    ShardedGenomeScreen,
+    range_block,
+)
+from calitas_tpu_torch.utils import degradable, note_degraded
 
 logger = logging.getLogger("calitas_tpu_torch.SearchReference")
 
@@ -45,6 +61,12 @@ _CAND_BATCH = 1024
 
 #: threads that wait on segment readbacks ahead of the candidate stream
 _RESOLVERS = 4
+
+#: a ``prestaged`` value: the contig is not resident (its staging failed
+#: in a resident server) and is aligned on the host, without a new staging
+HOST_ONLY = object()
+
+_SKIP = object()  # a contig too short to search
 
 
 @dataclass(frozen=True)
@@ -63,9 +85,11 @@ def screened_search(
     tasks: Sequence[GuideTask],
     aligner: SequentialAligner,
     *,
-    screen: GenomeScreen,
     window_size: int,
     hit_spec: dict,
+    screen: Optional[GenomeScreen] = None,
+    device=None,
+    mesh=None,
     threads: int = 1,
     swallow_errors: bool = False,
     prestaged: Optional[dict] = None,
@@ -76,10 +100,21 @@ def screened_search(
     RenderedBlock of finished 34-column rows.  ``hit_spec`` carries the
     run-scoped row fields (ref_path, aligner_id, arguments, vcf_id,
     timestamp, aligner_version).  Contigs outer (staged once), guides
-    inner.  ``prestaged`` maps contig names to arrays that
-    :meth:`GenomeScreen.stage` already made (a resident genome): those
-    contigs are neither read nor staged again, and the screens never
-    write into them (PAM bits go into a copy per guide group)."""
+    inner.  Without a ``screen`` one is built: a
+    :class:`ShardedGenomeScreen` over ``mesh`` when it has two or more
+    entries, else a :class:`GenomeScreen` on its one entry or on
+    ``device``.  ``prestaged`` maps contig names to arrays that the
+    screen's ``stage`` already made (a resident genome), or to
+    :data:`HOST_ONLY`: those contigs are neither read nor staged again,
+    and the screens never write into them (PAM bits go into a copy per
+    guide group)."""
+    if screen is None:
+        if mesh is not None and len(mesh) > 1:
+            screen = ShardedGenomeScreen(aligner.scorer, mesh, window=window_size)
+        else:
+            screen = GenomeScreen(
+                aligner.scorer, mesh[0] if mesh else device, window=window_size
+            )
     names = [chrom] if chrom is not None else fasta.names
     groups = _guide_groups(tasks, align_kwargs)
     for (q_len, _step, _pspec), group in groups.items():
@@ -90,14 +125,27 @@ def screened_search(
 
     # A one-slot staging thread reads and uploads contig N+1 while contig
     # N is screened and finished (at most two staged contigs live on the
-    # device at once, besides the resident ones).
+    # device at once, besides the resident ones).  A genome of None means
+    # the contig is aligned on the host.
     def stage_contig(name: str):
         contig_len = fasta.sequence_length(name) or 0
         if contig_len < 2:
-            return name, contig_len, None  # too short to search
+            return name, contig_len, _SKIP  # too short to search
         genome = (prestaged or {}).get(name)
+        if genome is HOST_ONLY:
+            logger.info("Contig %s is not resident; aligning it on the host.", name)
+            return name, contig_len, None
         if genome is None:
-            genome = screen.stage(fasta.get_bases(name))
+            try:
+                genome = screen.stage(fasta.get_bases(name))
+            except Exception as ex:
+                if not degradable(ex):
+                    raise
+                note_degraded(
+                    "staging", logger,
+                    "Device staging failed for %s; falling back to host alignment.",
+                    name,
+                )
         return name, contig_len, genome
 
     stager = ThreadPoolExecutor(max_workers=1, thread_name_prefix="calitas-stage")
@@ -110,7 +158,7 @@ def screened_search(
                 if idx + 1 < len(names)
                 else None
             )
-            if genome is None:
+            if genome is _SKIP:
                 continue
             yield from _search_contig(
                 fasta, name, contig_len, genome, tasks, groups, aligner,
@@ -153,15 +201,36 @@ def _guide_groups(tasks, align_kwargs) -> dict:
 
 class _GuideSlice:
     """Guide ``gi``'s view of a group segment's readback: the group's
-    Future resolves once, and each guide reads its own ``[gi]``."""
+    Future resolves once, and each guide reads its own ``[gi]`` (None when
+    the readback degraded)."""
 
     def __init__(self, fut, gi: int):
         self._fut = fut
         self._gi = gi
 
     def result(self):
-        chain_flags, ranges = self._fut.result()
+        res = self._fut.result()
+        if res is None:
+            return None
+        chain_flags, ranges = res
         return chain_flags[self._gi], ranges[self._gi]
+
+
+def _guarded(resolve, name: str, group, i0: int):
+    """A segment's readback, or None when the device failed it (logged
+    and counted once for the whole guide group)."""
+    try:
+        return resolve()
+    except Exception as ex:
+        if not degradable(ex):
+            raise
+        note_degraded(
+            "readback", logger,
+            "Device screen unavailable for %s/%s (segment at window %d); "
+            "aligning remaining windows on the host.",
+            name, ",".join(t.guide_id for _ti, t, _dq in group), i0,
+        )
+        return None
 
 
 def _search_contig(
@@ -172,32 +241,41 @@ def _search_contig(
     # device runs all segments back to back while the host pool finishes
     # earlier ones.  Each segment's readback is submitted once to the
     # ordered resolver pool; its Future is the one shared result.
+    # A future of None marks a span the host aligns unscreened.
     resolver = ThreadPoolExecutor(
         max_workers=_RESOLVERS, thread_name_prefix="calitas-resolve"
     )
     try:
         seg_futs: dict[int, list] = {}  # task index -> [(i0, n_seg, fut)]
         for (_q, step, pspec), group in groups.items():
-            mss = [
-                aligner.min_guide_score(t.guide, align_kwargs["max_guide_diffs"])
-                for _ti, t, _dq in group
-            ]
+            segs = None
+            if genome is not None:
+                try:
+                    segs = _launch_group(
+                        screen, genome, contig_len, step, pspec, group, aligner,
+                        align_kwargs,
+                    )
+                except Exception as ex:
+                    if not degradable(ex):
+                        raise
+                    note_degraded(
+                        "launch", logger,
+                        "Device screen unavailable for %s/%s; aligning every "
+                        "window on the host.",
+                        name, ",".join(t.guide_id for _ti, t, _dq in group),
+                    )
+            if segs is None:
+                n = len(screen.window_starts(contig_len, step))
+                for ti, _t, _dq in group:
+                    seg_futs[ti] = [(0, n, None)]
+                continue
+            futs = [(i0, n, resolver.submit(_guarded, res, name, group, i0))
+                    for i0, n, res in segs]
             if len(group) >= 2:
-                segs = screen.screen_contig_multi_async(
-                    genome, contig_len, step,
-                    [(dq, revcomp(dq)) for _ti, _t, dq in group], mss,
-                    pam_spec=pspec,
-                )
-                futs = [(i0, n, resolver.submit(res)) for i0, n, res in segs]
                 for gi, (ti, _t, _dq) in enumerate(group):
                     seg_futs[ti] = [(i0, n, _GuideSlice(f, gi)) for i0, n, f in futs]
             else:
-                [(ti, _t, dq)] = group
-                segs = screen.screen_contig_async(
-                    genome, contig_len, step, dq, revcomp(dq), mss[0],
-                    pam_spec=pspec,
-                )
-                seg_futs[ti] = [(i0, n, resolver.submit(res)) for i0, n, res in segs]
+                seg_futs[group[0][0]] = futs
         for ti, task in enumerate(tasks):
             starts = screen.window_starts(contig_len, task.step_size)
             yield from _finish_segments(
@@ -208,6 +286,26 @@ def _search_contig(
         resolver.shutdown(wait=False, cancel_futures=True)
 
 
+def _launch_group(screen, genome, contig_len, step, pspec, group, aligner,
+                  align_kwargs) -> list:
+    """Launch a guide group's segmented screen: the multi-guide screen for
+    two or more guides, the dual-chain one for one; ``(i0, n_seg,
+    resolve)`` per segment."""
+    mss = [
+        aligner.min_guide_score(t.guide, align_kwargs["max_guide_diffs"])
+        for _ti, t, _dq in group
+    ]
+    if len(group) >= 2:
+        return screen.screen_contig_multi_async(
+            genome, contig_len, step,
+            [(dq, revcomp(dq)) for _ti, _t, dq in group], mss, pam_spec=pspec,
+        )
+    [(_ti, _t, dq)] = group
+    return screen.screen_contig_async(
+        genome, contig_len, step, dq, revcomp(dq), mss[0], pam_spec=pspec,
+    )
+
+
 def _finish_segments(
     seg_futs, starts, name, task, aligner, window_size, threads,
     swallow_errors, hit_spec, align_kwargs,
@@ -215,7 +313,9 @@ def _finish_segments(
     """Consume a segmented contig screen: the candidate stream takes each
     segment's ``(chain_flags [2, n_seg], ranges [2, n_seg, 2])`` from its
     Future in window order, so the worker pool finishes segment N while
-    the device screens segment N+1."""
+    the device screens segment N+1.  From the first segment without a
+    result (no launch, or a failed readback) on, every window goes to the
+    host finish unscreened: both passes, no column ranges."""
     from calitas_tpu_torch.parallel.host_pool import (
         _mp_finish_chunk,
         make_finish_spec,
@@ -226,8 +326,17 @@ def _finish_segments(
     rb = range_block(window_size)
 
     def cand_stream():
-        for i0, _n_seg, fut in seg_futs:
-            chain_flags, cranges = fut.result()
+        unscreened = False
+        for i0, n_seg, fut in seg_futs:
+            res = None if unscreened or fut is None else fut.result()
+            if res is None:
+                unscreened = True
+                stats["cand"] += n_seg
+                span = starts[i0 : i0 + n_seg]
+                for c0 in range(0, n_seg, _CAND_BATCH):
+                    yield ("__batch__", name, span[c0 : c0 + _CAND_BATCH], None, None)
+                continue
+            chain_flags, cranges = res
             hit_idx = np.nonzero(chain_flags.any(axis=0))[0]
             n_cand = len(hit_idx)
             stats["cand"] += n_cand

@@ -741,8 +741,9 @@ def flank_and_absolutize(
 # batches go to ops/genome_screen.py::screen_slots_multi, the multi-guide
 # kernel on CUDA or its plain version on the CPU (and on CUDA for guides
 # whose DP query is longer than the kernel takes: the route is chosen and
-# logged once per guide group).  A device error propagates; nothing
-# degrades to unscreened alignment.  torch is imported inside these
+# logged once per guide group).  A device fault degrades: the batch's
+# windows are aligned unscreened for every guide (utils.degradable,
+# counted in utils.DEGRADED).  torch is imported inside these
 # functions: the finish pool's spawned workers import this module to
 # unpickle variant windows and must not pay for torch.
 # ---------------------------------------------------------------------------
@@ -756,6 +757,7 @@ def screened_variant_windows_multi(
     slot: int = 512,
     batch_slots: int = 8192,
     pipeline_depth: int = 3,
+    mesh=None,
 ):
     """Yield ``(window, flagged_keys)`` pairs: for every variant window,
     the set of guides whose exact device screen says the window can
@@ -769,16 +771,22 @@ def screened_variant_windows_multi(
     unscreened, flagged for every guide.  Flags are a superset (zero
     padding only adds candidate end columns), so aligning the flagged
     windows gives the exact output.  Guides longer than
-    :data:`~calitas_tpu_torch.ops.dp_cuda.Q_MAX` bases raise
-    NotImplementedError on CUDA."""
+    :data:`~calitas_tpu_torch.ops.dp_cuda.Q_MAX` bases run the plain
+    screen on CUDA.  With a ``mesh`` (``parallel/mesh.py``) each batch's
+    rows split into one span per mesh entry (``screen_slots_multi``);
+    the flags are the one-device screen's.
+
+    A device fault while a batch is screened or read back degrades, as
+    the reference's does: every window of that batch is flagged for every
+    guide (a superset, so the table does not change), with a WARNING and
+    one count in ``utils.DEGRADED["variant_screen"]``.  A kernel that does
+    not build or launch, and programming errors, propagate."""
     import torch
 
     from calitas_tpu_torch.core.sequence import TARGET_MASK_TABLE, encode_query
     from calitas_tpu_torch.ops import dp_cuda
-    from calitas_tpu_torch.ops.genome_screen import (
-        screen_slots_multi,
-        slot_batch_unit,
-    )
+    from calitas_tpu_torch.ops import genome_screen
+    from calitas_tpu_torch.utils import degradable, note_degraded
 
     device = torch.device(device)
     # Same-length guide groups: one launch per group per batch.  On CUDA
@@ -804,7 +812,7 @@ def screened_variant_windows_multi(
         (np.stack(qs).astype(np.int32), np.asarray(ms, np.int32))
         for ks, qs, ms in by_len.values()
     ]
-    unit = slot_batch_unit(any(kernel for kernel, _q in by_len))
+    unit = genome_screen.slot_batch_unit(any(kernel for kernel, _q in by_len), mesh)
 
     all_keys = frozenset(k for k, *_ in guide_specs)
     # The batch is a list of segments: (block, row-indices) spans from raw
@@ -812,7 +820,16 @@ def screened_variant_windows_multi(
     # fan-out run as vectorized NumPy over whole spans.
     batch: list = []  # [(item, bis ndarray | None)]
     batch_count = 0
-    pending: list = []  # [(segments, [([keys], resolver), ...])]
+    pending: list = []  # [(segments, [([keys], resolver), ...] | None)]
+
+    def _degrade(ex):
+        if not degradable(ex):
+            raise ex
+        note_degraded(
+            "variant_screen", logging.getLogger("calitas_tpu_torch.SearchReference"),
+            "Device variant screen unavailable; aligning this batch's "
+            "windows unscreened.",
+        )
 
     def _seg_lengths(item, bis):
         if bis is None:
@@ -851,15 +868,38 @@ def screened_variant_windows_multi(
             ) + within
             flat[dst] = item.masks[src]
             row += len(bis)
-        resolvers = screen_slots_multi(aligner.scorer, tmasks, groups, device)
-        out = (batch, list(zip(group_keys, resolvers)))
+        try:
+            resolvers = genome_screen.screen_slots_multi(
+                aligner.scorer, tmasks, groups, device, mesh=mesh
+            )
+            launched = list(zip(group_keys, resolvers))
+        except Exception as ex:
+            _degrade(ex)
+            launched = None  # every window flagged for every guide
+        out = (batch, launched)
         batch = []
         batch_count = 0
         return out
 
+    def _materialize_all(segments):
+        for item, bis in segments:
+            if bis is None:
+                yield item, all_keys
+            else:
+                for bi in bis.tolist():
+                    yield item.window(bi), all_keys
+
     def resolve(p):
         segments, launched = p
-        fls = [(keys, resolver()) for keys, resolver in launched]
+        if launched is None:
+            yield from _materialize_all(segments)
+            return
+        try:
+            fls = [(keys, resolver()) for keys, resolver in launched]
+        except Exception as ex:
+            _degrade(ex)
+            yield from _materialize_all(segments)
+            return
         # [G_total, B] bool stacked over groups, keys flattened to match
         keys_flat = [k for keys, _fl in fls for k in keys]
         fl = np.concatenate([f for _k, f in fls], axis=0)

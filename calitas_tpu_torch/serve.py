@@ -15,8 +15,10 @@ full ``SearchReference`` run (both passes, global dedup, dictionary sort,
 the 34-column table) whose table equals a fresh run's with the same
 arguments but for ``time_stamp``.  The PAM gate of each guide group is
 stamped into a temporary copy, so a resident contig is never written.
-Staging errors propagate from the constructor: nothing here falls back to
-the host engine.
+A device fault while a contig is staged degrades, as the reference's
+does: that contig is not resident, and every request aligns it on the
+host (the same table), with a WARNING and one count in
+``utils.DEGRADED["resident_staging"]``.  Programming errors propagate.
 
 :func:`serve_stdio` wraps a searcher in a line-oriented JSON protocol for
 use as a subprocess; the ``Serve`` sub-command runs it.
@@ -82,9 +84,11 @@ class ResidentSearcher:
 
         self._screen = None
         self._staged: dict = {}
+        self._host_only: list = []  # contigs whose staging failed
         if self.device is not None:
             from calitas_tpu_torch.align.engine import SequentialAligner
             from calitas_tpu_torch.ops.genome_screen import GenomeScreen
+            from calitas_tpu_torch.utils import degradable, note_degraded
 
             scorer = SequentialAligner(
                 mismatch_net_cost=guide_mismatch_net_cost,
@@ -99,7 +103,17 @@ class ResidentSearcher:
                 for name in contigs if contigs is not None else fasta.names:
                     if (fasta.sequence_length(name) or 0) < 2:
                         continue  # too short to search, as screened_search skips it
-                    self._staged[name] = self._screen.stage(fasta.get_bases(name))
+                    try:
+                        self._staged[name] = self._screen.stage(fasta.get_bases(name))
+                    except Exception as ex:
+                        if not degradable(ex):
+                            raise
+                        note_degraded(
+                            "resident_staging", logger,
+                            "Staging failed for %s; searches will align this "
+                            "contig on the host.", name,
+                        )
+                        self._host_only.append(name)
             finally:
                 fasta.close()
             logger.info(
@@ -153,6 +167,7 @@ class ResidentSearcher:
 
         Writes the table to ``output`` when given (returns None);
         otherwise returns the table as a string."""
+        from calitas_tpu_torch.parallel.screen_runner import HOST_ONLY
         from calitas_tpu_torch.tools import search_reference
 
         def _run(out_path):
@@ -169,7 +184,7 @@ class ResidentSearcher:
                 chrom=chrom, engine=self.engine, device=self.device,
                 **self.costs,
                 _vcf_index=self._vcf_index, _screen=self._screen,
-                _prestaged=self._staged,
+                _prestaged={**self._staged, **dict.fromkeys(self._host_only, HOST_ONLY)},
             )
 
         if output is not None:

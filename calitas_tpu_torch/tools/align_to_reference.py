@@ -19,8 +19,11 @@ batch.  Engines:
     (``align.engine.align_to_ref_best``).  The table is identical either
     way.
   - ``auto``: the list tools' rule of ``device.resolve_engine``.
-A device error propagates; nothing degrades to the host behind the
-caller's back.
+A device fault in a batch's pair screen degrades, as the reference's
+does: that batch and every later one run unscreened on the host (the
+same table), with a WARNING and one count in
+``utils.DEGRADED["pair_screen"]``.  A kernel that does not build or
+launch, and programming errors, propagate.
 """
 
 from __future__ import annotations
@@ -37,7 +40,12 @@ from calitas_tpu_torch.io.fasta import IndexedFasta
 from calitas_tpu_torch.io.tsv import MetricWriter, open_output
 from calitas_tpu_torch.search.hits import HitBuilder, ReferenceHit, sort_hits
 from calitas_tpu_torch.tools.pairwise import dp_query
-from calitas_tpu_torch.utils import camel_to_gnu, scala_option_repr
+from calitas_tpu_torch.utils import (
+    camel_to_gnu,
+    degradable,
+    note_degraded,
+    scala_option_repr,
+)
 
 logger = logging.getLogger("calitas_tpu_torch.AlignToReference")
 
@@ -252,7 +260,14 @@ def run(
     for batch_start in range(0, len(tasks), BATCH_SIZE):
         batch = tasks[batch_start : batch_start + BATCH_SIZE]
         if pair_screen is not None:
-            batch = _screen_batch(batch)
+            try:
+                batch = _screen_batch(batch)
+            except Exception as ex:
+                if not degradable(ex):
+                    raise
+                note_degraded("pair_screen", logger,
+                              "Device pair screen unavailable; aligning batch unscreened.")
+                pair_screen = None
         results: list[ReferenceHit] = []
         for (task_id, _q, _c, _p, *_extra), (guide, alns) in map_items_mp(
             batch, spec, threads,

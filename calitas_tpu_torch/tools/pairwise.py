@@ -15,8 +15,10 @@ aln.startOffset.  Engines:
     which skips the rev pass where the bound shows it cannot win
     (``align.engine.align_best``).  The table is identical either way.
   - ``auto``: the list tools' rule of ``device.resolve_engine``.
-A device error propagates; nothing degrades to the host behind the
-caller's back.
+A device fault in the pair screen degrades, as the reference's does: the
+pairs run both passes on the host with no bounds (the same table), with
+a WARNING and one count in ``utils.DEGRADED["pair_screen"]``.  A kernel
+that does not build or launch, and programming errors, propagate.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from calitas_tpu_torch.core.guide import Guide
 from calitas_tpu_torch.core.scoring import Defaults
 from calitas_tpu_torch.device import resolve_engine
 from calitas_tpu_torch.io.tsv import open_output
+from calitas_tpu_torch.utils import degradable, note_degraded
 
 logger = logging.getLogger("calitas_tpu_torch.PairwiseAlignSequences")
 
@@ -96,15 +99,25 @@ def run(
         from calitas_tpu_torch.ops.pair_screen import PairScreen, pass_bounds_for
 
         guides = [parse_or_none(q) for q, _t in tasks]
-        chain_a, chain_b = PairScreen(aligner.scorer, screen_device).chain_maxima(
-            [dp_query(g) for g in guides], [t for _q, t in tasks],
-        )
-        logger.info(
-            "Pair screen: %d of %d pairs screened on %s.",
-            int((chain_a != PairScreen.NO_SCREEN).sum()), len(tasks),
-            screen_device,
-        )
-        if not native.available():  # only the per-pair fallback reads them
+        try:
+            chain_a, chain_b = PairScreen(aligner.scorer, screen_device).chain_maxima(
+                [dp_query(g) for g in guides], [t for _q, t in tasks],
+            )
+        except Exception as ex:
+            if not degradable(ex):
+                raise
+            note_degraded("pair_screen", logger,
+                          "Device pair screen unavailable; aligning unscreened.")
+            chain_a = None
+        else:
+            logger.info(
+                "Pair screen: %d of %d pairs screened on %s.",
+                int((chain_a != PairScreen.NO_SCREEN).sum()), len(tasks),
+                screen_device,
+            )
+        # Only the per-pair fallback reads the bounds; unscreened pairs
+        # carry none and run both passes.
+        if chain_a is not None and not native.available():
             tasks = [
                 (q, t, pass_bounds_for(g, int(a), int(b)) if g is not None else None)
                 for (q, t), g, a, b in zip(tasks, guides, chain_a, chain_b)

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import re
+import threading
 
 
 def camel_to_gnu(name: str) -> str:
@@ -45,3 +46,77 @@ class ProgressLogger:
                 "%s %s %s. Elapsed %.0fs (%.0f/s).%s",
                 self._verb, f"{self._count:,}", self._noun, elapsed, rate, where,
             )
+
+
+class KernelError(RuntimeError):
+    """A fault of the port's own CUDA kernels: ``nvcc`` missing, a failed
+    build or library load, or a launch the kernel refused
+    (``ops/dp_cuda.py``, ``ops/probes.py``).  Never degradable: a host
+    fallback would hide a broken kernel behind an identical table."""
+
+
+#: Exception types that always indicate a host-side programming error.
+#: The degradation policy (device failure degrades to host alignment,
+#: never aborts — SearchReference.scala:555-559's log-and-continue
+#: intent) must NOT swallow these: a silent 100x slowdown over a bug is
+#: worse than a crash that gets the bug fixed.
+_PROGRAMMING_ERRORS = (
+    RecursionError,
+    TypeError,
+    ValueError,  # numpy reshape/stack shape bugs raise this
+    AssertionError,
+    AttributeError,
+    NameError,
+    UnboundLocalError,
+    IndexError,
+    KeyError,
+    SyntaxError,
+)
+
+
+def degradable(exc: BaseException) -> bool:
+    """True if ``exc`` is a device failure the screen paths may degrade on
+    (falling back to host alignment with identical output); False for
+    programming errors and for faults of the port's kernels, which must
+    propagate.
+
+    torch reports device faults as ``torch.cuda.OutOfMemoryError`` or as
+    a ``RuntimeError`` ("CUDA error: ...") from a copy, an allocation or a
+    synchronize: both degrade.  :class:`KernelError` (a kernel that does
+    not build or launch) and ``NotImplementedError`` (a query the kernels
+    do not take on CUDA; a ``RuntimeError`` subclass) never do."""
+    if isinstance(exc, (KernelError, NotImplementedError)):
+        return False
+    return not isinstance(exc, _PROGRAMMING_ERRORS)
+
+
+#: degradations by point since the last :func:`reset_degraded`, at the
+#: counterparts of the reference's catches: a contig's staging, a guide
+#: group's segmented screen launch, a segment's readback, a variant slot
+#: batch, a list tool's pair screen, and a resident server's staging of a
+#: contig.  A run whose device never failed reads zero everywhere.  The
+#: table of a degraded run equals a screened one by design, so this
+#: counter (with the kernels' launch counts) is what shows a fault
+#: happened.
+DEGRADED = dict.fromkeys(
+    ("staging", "launch", "readback", "variant_screen", "pair_screen",
+     "resident_staging"),
+    0,
+)
+
+_degraded_lock = threading.Lock()
+
+
+def note_degraded(point: str, log, msg: str, *args) -> None:
+    """Record one degradation at ``point``: a WARNING on ``log`` with the
+    exception being handled (call from an ``except`` block), and one more
+    in :data:`DEGRADED`."""
+    log.warning(msg, *args, exc_info=True)
+    with _degraded_lock:
+        DEGRADED[point] += 1
+
+
+def reset_degraded() -> None:
+    with _degraded_lock:
+        for point in DEGRADED:
+            DEGRADED[point] = 0

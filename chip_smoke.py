@@ -149,15 +149,44 @@ Phases, each raising on failure:
    within 60 s, the CUDA route in its log.  Prints staging, VCF index
    and warmup seconds, each request's seconds, rows and launches, and
    the first request's time against the best warm one's.
+15. Faults on the card: config 3 through the CLI with an injected
+   ``torch.cuda.OutOfMemoryError`` at staging (no kernel launch) and with
+   an injected readback fault in segment 3 of 6 (config 3 run as one
+   segment per 8,192-window batch; every segment launched): each table must equal the golden and ``utils.DEGRADED`` must
+   read exactly the one injected fault; config 3 with ``-m 300000000``
+   (a score set whose end shift leaves int32, which the dual kernel's
+   launch refuses) must fail with ``KernelError``, write no table and
+   degrade nothing; a ``ResidentSearcher`` on a 6 + 4 Mb genome whose
+   4 Mb contig fails to stage must serve a request with a fresh run's
+   table, launching the dual kernel for the resident contig's segments
+   only.
+16. Mesh and ``--distributed``: on phase 3's 40 Mb genome,
+   ``ShardedGenomeScreen`` with 2 and 4 spans on this card (and over
+   every visible device when there is more than one; the count is
+   printed) must equal ``GenomeScreen`` bit for bit, flags and ranges,
+   dual and G 4 multi-guide segmented screens, with one launch per span
+   per segment; golden configs 3, 5s and 4 through ``run(mesh=)`` of two
+   spans on this card (and config 3 over every visible device when there
+   are several) must equal their goldens, the grid kernel launched once
+   per span per segment, config 4's slot batches split, no plain version
+   on the card; two ``--distributed`` processes (gloo, ``RANK`` 0/1,
+   ``--engine gpu``) on a 6.5 Mb genome of 3 contigs must merge to the
+   single run's table.  Prints config 3's screen time (stage + annotate
+   + kernel + readback) at 1, 2 and 4 spans of this card (and over every
+   visible device) with each span's lane count, and the dual kernel alone
+   at config 3's grid and one 1 Gb segment's split over 1, 2 and 4
+   streams.
 
-After the phases, passed or not, it stops every process it started and
+After every phase but 15, ``utils.DEGRADED`` must read zero: no screen
+fell back to the host.  After the phases, passed or not, it stops every process it started and
 waits for each to end: the finish pool's workers, then the resource
 tracker of the pool's spawn context, then any other descendant.
 
 The line before the last is a JSON object describing the kernels (the
 launch counts are those of the main paths: phases 4 and 14's requests
-for the dual kernel, phases 6, 7 and 14's requests for the multi-guide
-kernel, the gpu runs of phases 10 and 11 for the row kernel, phase 13's
+and phase 16's mesh goldens for the dual kernel, phases 6, 7 and 14's
+requests and phase 16's mesh goldens for the multi-guide kernel, the gpu
+runs of phases 10 and 11 for the row kernel, phase 13's
 roofline run for the probes; the row
 kernel's times are those of the launcher's L at phase 9's shape (a), the
 list tools' per-row mode; each bound is that of the timed call's
@@ -304,19 +333,25 @@ def cuda_time_ms(torch, fn, reps: int) -> float:
     return timed(fn, reps)
 
 
-def kernel_vs_plain(torch, np, dp_cuda, dp_screen, gs, scorer, device):
-    """Phase 3, first half: returns (max_abs_err over all cases, kernel
-    ms, plain ms, the annotated genome, the timed call's (qvals, kwargs))."""
+def phase3_genome(np) -> tuple:
+    """Phase 3's 40 Mb contig (raw bytes) and its planted protospacers
+    ``{Q: protospacer}``."""
     rng = np.random.default_rng(11)
     protos = {
         20: GUIDE[:20],
         24: "".join("ACGT"[i] for i in rng.integers(0, 4, 24)),
         48: "".join("ACGT"[i] for i in rng.integers(0, 4, 48)),
     }
+    return synthetic_genome(np, CONTIG, 7, list(protos.values())), protos
+
+
+def kernel_vs_plain(torch, np, dp_cuda, dp_screen, gs, scorer, device):
+    """Phase 3, first half: returns (max_abs_err over all cases, kernel
+    ms, plain ms, the annotated genome, the timed call's (qvals, kwargs))."""
     from calitas_tpu_torch.core.sequence import encode_query, revcomp
 
     t0 = time.perf_counter()
-    raw = synthetic_genome(np, CONTIG, 7, list(protos.values()))
+    raw, protos = phase3_genome(np)
     screen = gs.GenomeScreen(scorer, device, window=1000)
     genome = gs.annotate_genome_pam(
         screen.stage(raw), gs.encode_pam_spec((("nrg",), 1, 3))
@@ -2040,6 +2075,372 @@ def resident_serving(torch, np, dp_cuda, dp_screen, gs, scorer, device, tmp: Pat
     return dict(total), errs
 
 
+def no_degradation(utils, phase: str) -> None:
+    """Raises when a phase degraded anywhere (``utils.DEGRADED``): on the
+    card every screen must run, so a fault the table cannot show still
+    fails the run."""
+    left = {k: v for k, v in utils.DEGRADED.items() if v}
+    if left:
+        raise AssertionError(f"phase {phase} degraded to the host: {left}")
+
+
+def fail_segment(screen_cls, k: int, exc):
+    """``screen_contig_async`` of ``screen_cls`` with segment ``k``'s
+    readback raising ``exc``."""
+    orig = screen_cls.screen_contig_async
+
+    def screen_contig_async(self, *a, **kw):
+        segs = orig(self, *a, **kw)
+
+        def fail():
+            segs[k][2]()  # the readback itself completes; its result is lost
+            raise exc
+
+        return [(i0, n, fail if i == k else res) for i, (i0, n, res) in enumerate(segs)]
+
+    return screen_contig_async
+
+
+def faults_on_the_card(torch, np, dp_cuda, dp_screen, gs, scorer, device, tmp: Path) -> None:
+    """Phase 15: injected device faults degrade to the host with the
+    golden table and are counted; a real kernel fault propagates."""
+    from calitas_tpu_torch import cli, goldens, utils
+    from calitas_tpu_torch.io.fasta import IndexedFasta, ReferenceSetBuilder
+    from calitas_tpu_torch.serve import ResidentSearcher
+    from calitas_tpu_torch.tools import search_reference
+
+    argv = [*goldens.config3(tmp), "--engine", "gpu"]
+    want = golden_rows("3")
+    screen = gs.GenomeScreen(scorer, device, window=1000)
+    contig = IndexedFasta(argv[argv.index("-r") + 1]).sequence_length("chr21")
+    n = len(screen.window_starts(contig, DEFAULT_STEP))
+    # Config 3 is one segment; for a fault mid-contig it runs one segment
+    # per 8,192-window batch (MIN_BATCHES_PER_SEGMENT 1).
+    screen.MIN_BATCHES_PER_SEGMENT = 1
+    n_seg = len(screen.segment_spans(n))
+    oom = torch.cuda.OutOfMemoryError("CUDA out of memory (injected by chip_smoke)")
+    readback = RuntimeError("CUDA error: injected readback fault (chip_smoke)")
+
+    def raise_oom(self, bases):
+        raise oom
+
+    for point, patches, launches in (
+        ("staging", {"stage": raise_oom}, 0),
+        ("readback", {"screen_contig_async": fail_segment(gs.GenomeScreen, n_seg // 2, readback),
+                      "MIN_BATCHES_PER_SEGMENT": 1}, n_seg),
+    ):
+        out = tmp / f"config3_{point}.txt"
+        orig = {k: getattr(gs.GenomeScreen, k) for k in patches}
+        for k, v in patches.items():
+            setattr(gs.GenomeScreen, k, v)
+        utils.reset_degraded()
+        dp_cuda.reset_launches()
+        try:
+            e2e = run_cli(torch, cli, [*argv, "-o", str(out)])
+        finally:
+            for k, v in orig.items():
+                setattr(gs.GenomeScreen, k, v)
+        got = norm_rows(out.read_text())
+        assert_same_table(got, want, f"config3 with a {point} fault differs from golden")
+        counts = {k: v for k, v in utils.DEGRADED.items() if v}
+        log(f"[faults] config3, injected {point} fault: table == golden ({len(got) - 1} "
+            f"rows); degraded {counts}; dual kernel launches {dp_cuda.launches['screen_dual']} "
+            f"(want {launches}); end to end {e2e:.3f} s")
+        if counts != {point: 1} or dp_cuda.launches["screen_dual"] != launches:
+            raise AssertionError(f"{point} fault: degraded {counts}, launches "
+                                 f"{dp_cuda.launches['screen_dual']} (want {launches})")
+
+    # A real kernel fault: a score set whose end shift Q * mismatch leaves
+    # int32 is refused by the dual kernel's launch (KernelError).
+    out = tmp / "config3_refused.txt"
+    utils.reset_degraded()
+    try:
+        run_cli(torch, cli, [*argv, "-o", str(out), "-m", "300000000"])
+    except dp_cuda.KernelError as ex:
+        log(f"[faults] refused launch propagates: {ex}")
+    else:
+        raise AssertionError("a refused launch did not fail the command")
+    if out.exists() or any(utils.DEGRADED.values()):
+        raise AssertionError(f"refused launch: table written {out.exists()}, "
+                             f"degraded {utils.DEGRADED}")
+
+    # A resident server whose staging of one contig fails.
+    b = ReferenceSetBuilder(assembly="faults")
+    for name, n, seed in (("chrA", 6_000_000, 151), ("chrB", 4_000_000, 152)):
+        b.add(name).add(goldens.synth_genome(n, seed))
+    ref = b.to_file(tmp / "faults.fa")
+    fresh = tmp / "faults_fresh.txt"
+    search_reference.run(guide=GUIDE, guide_id="r", ref=ref, output=fresh, engine="gpu",
+                         device=device)
+    orig = gs.GenomeScreen.stage
+
+    def chr_b_fails(self, bases):
+        if len(bases) == 4_000_000:
+            raise oom
+        return orig(self, bases)
+
+    gs.GenomeScreen.stage = chr_b_fails
+    utils.reset_degraded()
+    try:
+        searcher = ResidentSearcher(ref, engine="gpu", device=device, threads=8)
+    finally:
+        gs.GenomeScreen.stage = orig
+    served = tmp / "faults_served.txt"
+    dp_cuda.reset_launches()
+    searcher.search(GUIDE, "r", output=str(served))
+    torch.cuda.synchronize()
+    seg_a = len(gs.GenomeScreen(scorer, device, window=1000).segment_spans(
+        len(screen.window_starts(6_000_000, DEFAULT_STEP))))
+    counts = {k: v for k, v in utils.DEGRADED.items() if v}
+    assert_same_table(norm_rows(served.read_text()), norm_rows(fresh.read_text()),
+                      "served table with chrB on the host differs from a fresh run")
+    log(f"[faults] resident server, chrB's staging failed: resident {list(searcher._staged)}; "
+        f"table == fresh run ({len(norm_rows(fresh.read_text())) - 1} rows); degraded "
+        f"{counts}; dual kernel launches {dp_cuda.launches['screen_dual']} (chrA's "
+        f"segments {seg_a})")
+    if (counts != {"resident_staging": 1} or list(searcher._staged) != ["chrA"]
+            or dp_cuda.launches["screen_dual"] != seg_a):
+        raise AssertionError("resident staging fault not served from the host as expected")
+    del searcher
+    utils.reset_degraded()
+
+
+def resolve_all(np, segs) -> tuple:
+    """A segmented screen's flags and ranges, joined in window order."""
+    parts = [resolve() for _i0, _n, resolve in segs]
+    return (np.concatenate([f for f, _r in parts], axis=-1),
+            np.concatenate([r for _f, r in parts], axis=-2))
+
+
+def span_kernel_ms(torch, dp_cuda, gs, genome, qvals, kw: dict, k: int) -> float:
+    """ms of one dual-kernel grid split into ``k`` spans, each launched on
+    its own stream of the genome's card (the current stream waits for
+    all): CUDA events, mean of 20."""
+    streams = [torch.cuda.Stream(device=genome.device) for _ in range(k)]
+    spans = gs.mesh_spans(k, 0, kw["n_windows"])
+
+    def launch():
+        cur = torch.cuda.current_stream()
+        for (_e, s0, n), st in zip(spans, streams):
+            st.wait_stream(cur)
+            with torch.cuda.stream(st):
+                dp_cuda.screen_dual(genome, qvals, **dict(
+                    kw, base0=kw["base0"] + s0 * kw["step"], n_windows=n))
+        for st in streams:
+            cur.wait_stream(st)
+
+    return cuda_time_ms(torch, launch, 20)
+
+
+def mesh_and_distributed(torch, np, dp_cuda, dp_screen, gs, scorer, device,
+                         tmp: Path) -> dict:
+    """Phase 16: the window split against the one-device screen, golden
+    configs 3, 5s and 4 through ``run(mesh=)``, two ``--distributed``
+    processes, and config 3's screen at 1, 2 and 4 spans.  Returns the
+    mesh goldens' launches by kernel."""
+    import functools
+
+    from calitas_tpu_torch import cli, goldens
+    from calitas_tpu_torch.core.sequence import revcomp
+    from calitas_tpu_torch.io.fasta import IndexedFasta, ReferenceSetBuilder
+    from calitas_tpu_torch.parallel.mesh import make_mesh
+    from calitas_tpu_torch.parallel.multihost import merge_host_outputs
+    from calitas_tpu_torch.tools import search_reference
+
+    n_cards = torch.cuda.device_count()
+    log(f"[mesh] visible CUDA devices: {n_cards}")
+    raw, protos = phase3_genome(np)
+    q = GUIDE[:20]
+    rng = np.random.default_rng(16)
+    dqs = [(p, revcomp(p)) for p in
+           [q, protos[24][:20], *("".join("ACGT"[i] for i in rng.integers(0, 4, 20))
+                                  for _ in range(2))]]
+    ms = 60 * 20 - 5 * 122
+    pam = (("nrg",), 1, 3)
+    one = gs.GenomeScreen(scorer, device, window=1000)
+    g1 = one.stage(raw)
+    want = {
+        "dual": resolve_all(np, one.screen_contig_async(
+            g1, CONTIG, DEFAULT_STEP, q, revcomp(q), ms, pam_spec=pam)),
+        "multi": resolve_all(np, one.screen_contig_multi_async(
+            g1, CONTIG, DEFAULT_STEP, dqs, [ms] * 4, pam_spec=pam)),
+    }
+    del g1
+    n = len(one.window_starts(CONTIG, DEFAULT_STEP))
+    segments = one.segment_spans(n)
+    meshes = [(device,) * 2, (device,) * 4] + ([make_mesh()] if n_cards > 1 else [])
+    for mesh in meshes:
+        sh = gs.ShardedGenomeScreen(scorer, mesh, window=1000)
+        gm = sh.stage(raw)
+        spans = sum(len(gs.mesh_spans(len(mesh), i0, n_seg)) for i0, n_seg in segments)
+        dp_cuda.reset_launches()
+        got = {
+            "dual": resolve_all(np, sh.screen_contig_async(
+                gm, CONTIG, DEFAULT_STEP, q, revcomp(q), ms, pam_spec=pam)),
+            "multi": resolve_all(np, sh.screen_contig_multi_async(
+                gm, CONTIG, DEFAULT_STEP, dqs, [ms] * 4, pam_spec=pam)),
+        }
+        same = {k: all(np.array_equal(a, b) for a, b in zip(got[k], want[k])) for k in got}
+        launches = {k: dp_cuda.launches[f"screen_{k}"] for k in got}
+        log(f"[mesh] {len(mesh)} spans on {sorted({str(d) for d in mesh})}, "
+            f"{CONTIG:,} bases, Q 20, "
+            f"gate on: flags and ranges == one device: {same}; launches {launches} "
+            f"({spans} spans over {len(segments)} segments); "
+            f"{int(got['dual'][0].any(axis=0).sum())} dual candidates")
+        if not all(same.values()) or launches != {"dual": spans, "multi": spans}:
+            raise AssertionError(f"mesh of {len(mesh)}: identical {same}, launches {launches}")
+        del gm
+
+    # Golden configs through run(mesh=): two spans on one card (and config
+    # 3 over every visible device when there are several).
+    run_orig = search_reference.run
+    mesh_launches = {"screen_dual": 0, "screen_multi": 0}
+    runs = [(make_mesh(devices=[device] * 2), c) for c in ("3", "5s", "4")]
+    if n_cards > 1:
+        runs.append((make_mesh(), "3"))
+    for mesh, config in runs:
+        argv_of = {"3": goldens.config3, "5s": goldens.config5s, "4": goldens.config4}[config]
+        out = tmp / f"mesh_config{config}.txt"
+        argv = [*argv_of(tmp), "-o", str(out), "--engine", "gpu"]
+        dp_cuda.reset_launches()
+        dp_screen.reference_calls["cuda"] = 0
+        search_reference.run = functools.partial(run_orig, mesh=mesh)
+        try:
+            e2e = run_cli(torch, cli, argv)
+        finally:
+            search_reference.run = run_orig
+        launches = dict(dp_cuda.launches)
+        plain = dp_screen.reference_calls["cuda"]
+        got = norm_rows(out.read_text())
+        assert_same_table(got, golden_rows(config), f"config{config} on a mesh differs")
+        ref = IndexedFasta(argv[argv.index("-r") + 1])
+        n_c = len(one.window_starts(ref.sequence_length("chr21"), DEFAULT_STEP))
+        want_spans = sum(len(gs.mesh_spans(len(mesh), i0, n_seg))
+                         for i0, n_seg in one.segment_spans(n_c))
+        log(f"[mesh] config{config} through run(mesh={[str(d) for d in mesh]}): table == golden "
+            f"({len(got) - 1} rows); launches dual {launches['screen_dual']} multi "
+            f"{launches['screen_multi']} (grid spans {want_spans}); plain versions on the "
+            f"card {plain}; end to end {e2e:.3f} s")
+        grid = "screen_multi" if config == "5s" else "screen_dual"
+        if launches[grid] != want_spans or plain != 0:
+            raise AssertionError(f"config{config} on a mesh: launches {launches}, plain {plain}")
+        if config == "4" and (launches["screen_multi"] < 2
+                              or launches["screen_multi"] % len(mesh)):
+            raise AssertionError(f"config4's slot batches did not split: {launches}")
+        for k in mesh_launches:
+            mesh_launches[k] += launches[k]
+
+    # Two --distributed processes on a 3-contig genome.
+    b = ReferenceSetBuilder(assembly="dist")
+    for i, n_c in enumerate((3_000_000, 2_000_000, 1_500_000)):
+        b.add(f"chr{i + 1}").add(goldens.synth_genome(n_c, 160 + i))
+    ref = b.to_file(tmp / "dist.fa")
+    single = tmp / "dist_single.txt"
+    search_reference.run(guide=GUIDE, guide_id="g", ref=ref, output=single, engine="gpu",
+                         device=device)
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "calitas_tpu_torch", "SearchReference", "-i", GUIDE, "-I",
+           "g", "-r", str(ref), "--engine", "gpu", "--device", str(device), "--distributed"]
+    procs, shards = [], []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(2):
+            shards.append(tmp / f"dist_shard{rank}.txt")
+            env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                       WORLD_SIZE="2", RANK=str(rank))
+            procs.append(subprocess.Popen(cmd + ["-o", str(shards[-1])], cwd=ROOT, env=env,
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+        for p in procs:
+            _out, err = p.communicate(timeout=240)
+            if p.returncode != 0:
+                raise AssertionError(f"--distributed process exited {p.returncode}: "
+                                     f"{err.decode()[-2000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    merged = tmp / "dist_merged.txt"
+    merge_host_outputs(shards, IndexedFasta(ref).dictionary, merged)
+    assert_same_table(norm_rows(merged.read_text()), norm_rows(single.read_text()),
+                      "--distributed shards' merge differs from the single run")
+    shard_rows = [len(norm_rows(s.read_text())) - 1 for s in shards]
+    log(f"[mesh] two --distributed processes (gloo, RANK 0/1, --engine gpu) on 6.5 Mb in 3 "
+        f"contigs: merge == single run ({len(norm_rows(single.read_text())) - 1} rows; "
+        f"shards {shard_rows} rows) in {time.perf_counter() - t0:.3f} s")
+    span_timing(torch, np, dp_cuda, gs, scorer, device, raw, dqs)
+    return mesh_launches
+
+
+def span_timing(torch, np, dp_cuda, gs, scorer, device, raw, dqs) -> None:
+    """Phase 16's times on this card: config 3's screen at 1, 2 and 4
+    spans, and the dual kernel alone at config 3's grid and one 1 Gb
+    segment's, split over 1, 2 and 4 streams."""
+    from calitas_tpu_torch.core.sequence import encode_query, revcomp
+
+    q = GUIDE[:20]
+    ms = 60 * 20 - 5 * 122
+    pam = (("nrg",), 1, 3)
+    one = gs.GenomeScreen(scorer, device, window=1000)
+    n = len(one.window_starts(CONTIG, DEFAULT_STEP))
+    segments = one.segment_spans(n)
+
+    # Config 3's screen (stage + annotate + kernel + readback) at 1, 2 and
+    # 4 spans on this card, and the dual kernel alone at config 3's grid
+    # and one 1 Gb segment's, split into 1, 2 and 4 streams.
+    seg_n = segments[0][1]
+    meshes = [(device,) * k for k in (1, 2, 4, 4, 2, 1)]
+    if torch.cuda.device_count() > 1:
+        from calitas_tpu_torch.parallel.mesh import make_mesh
+
+        meshes += [make_mesh(), (device,), make_mesh()]
+    for mesh in meshes:
+        k = len(mesh)
+        screen = one if k == 1 else gs.ShardedGenomeScreen(scorer, mesh, window=1000)
+        best = {}
+        for what in ("dual", "multi"):
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                g = screen.stage(raw)
+                if what == "dual":
+                    segs = screen.screen_contig_async(g, CONTIG, DEFAULT_STEP, q, revcomp(q),
+                                                      ms, pam_spec=pam)
+                else:
+                    segs = screen.screen_contig_multi_async(g, CONTIG, DEFAULT_STEP, dqs,
+                                                            [ms] * 4, pam_spec=pam)
+                resolve_all(np, segs)
+                times.append(time.perf_counter() - t0)
+                del g
+            best[what] = min(times)
+        span_n = gs.mesh_spans(k, 0, seg_n)[0][2]
+        log(f"[mesh] config3 screen only at {k} span(s) on "
+            f"{sorted({str(d) for d in mesh})}: dual {best['dual']:.4f} s "
+            f"(L={dp_cuda.screen_dual_default_lanes(20)}), multi G 4 {best['multi']:.4f} s "
+            f"(L={dp_cuda.screen_multi_default_lanes(20, span_n, 4, True)} at {span_n} "
+            f"windows per span of a {seg_n}-window segment); best of 3")
+    qvals = np.stack([encode_query(q), encode_query(revcomp(q))]).astype(np.int32)
+    annotated = gs.annotate_genome_pam(one.stage(raw), gs.encode_pam_spec(pam))
+    big = gs.annotate_genome_pam(
+        one.stage(synthetic_genome(np, 64_000_000, 8, [q])), gs.encode_pam_spec(pam))
+    kw = dict(base0=0, step=DEFAULT_STEP, window=1000, min_score=ms, pam_gate=True,
+              match=scorer.match_score, mismatch=scorer.mismatch_score,
+              qgap=scorer.query_gap_score, tgap=scorer.target_gap_score)
+    for shape, g, n_w in (("config3", annotated, n), ("1 Gb segment", big, 64_512)):
+        times = {}
+        for k in (1, 2, 4, 4, 2, 1):
+            t = span_kernel_ms(torch, dp_cuda, gs, g, qvals, dict(kw, n_windows=n_w), k)
+            times[k] = min(times.get(k, t), t)
+        log(f"[mesh] dual kernel at {shape}'s grid ({n_w} windows) on 1/2/4 streams of "
+            f"{device}: " + ", ".join(f"{k} span(s) {t:.4f} ms" for k, t in sorted(times.items()))
+            + " (each the lesser of two means of 20)")
+
+
 def own_processes() -> list:
     """(pid, state, command line) of every process descended from this
     one, read from /proc."""
@@ -2117,7 +2518,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
-    from calitas_tpu_torch import native
+    from calitas_tpu_torch import native, utils
     from calitas_tpu_torch.core.scoring import derive_scorer
     from calitas_tpu_torch.device import resolve_device
     from calitas_tpu_torch.ops import dp_cuda, dp_screen, probes
@@ -2186,11 +2587,13 @@ def main() -> int:
                     f"steady loop {c['loop']} with {c['loop_VIADDMNMX']} VIADDMNMX, "
                     f"{c['per_cell_chain']:.2f} per cell and chain; {c['loop_top']}")
             phase_s["3 dual vs plain"] = time.perf_counter() - t0
+            no_degradation(utils, "3 dual vs plain")
 
             # 4. Main path at chr21 scale
             t0 = time.perf_counter()
             dual_launches = main_path(torch, dp_cuda, dp_screen, gs, scorer, device, tmp)
             phase_s["4 config3"] = time.perf_counter() - t0
+            no_degradation(utils, "4 config3")
 
             # 5. Multi-guide kernel vs plain, on the card
             t0 = time.perf_counter()
@@ -2208,17 +2611,21 @@ def main() -> int:
                     f"VIADDMNMX, {c['per_cell_chain']:.2f} per cell and chain; {c['loop_top']}")
             del genome
             phase_s["5 multi vs plain"] = time.perf_counter() - t0
+            no_degradation(utils, "5 multi vs plain")
 
             # 6-8. The multi-guide kernel's paths
             t0 = time.perf_counter()
             multi_launches = config5s(torch, np, dp_cuda, dp_screen, gs, scorer, device, tmp)
             phase_s["6 config5s"] = time.perf_counter() - t0
+            no_degradation(utils, "6 config5s")
             t0 = time.perf_counter()
             multi_launches += config4(torch, dp_cuda, dp_screen, tmp)
             phase_s["7 config4"] = time.perf_counter() - t0
+            no_degradation(utils, "7 config4")
             t0 = time.perf_counter()
             variants_at_scale(torch, np, dp_cuda, tmp)
             phase_s["8 variants at scale"] = time.perf_counter() - t0
+            no_degradation(utils, "8 variants at scale")
 
             # 9-12. The row kernel and its paths, and the long-guide route
             t0 = time.perf_counter()
@@ -2232,15 +2639,19 @@ def main() -> int:
                     f"{c['loop_VIADDMNMX']} VIADDMNMX, {c['per_cell_chain']:.2f} per cell and "
                     f"chain; {c['loop_top']}")
             phase_s["9 rows vs plain"] = time.perf_counter() - t0
+            no_degradation(utils, "9 rows vs plain")
             t0 = time.perf_counter()
             rows_launches = goldens_1_2(torch, dp_cuda, dp_screen, tmp)
             phase_s["10 configs 1-2"] = time.perf_counter() - t0
+            no_degradation(utils, "10 configs 1-2")
             t0 = time.perf_counter()
             rows_launches += list_tools_at_scale(torch, np, dp_cuda, dp_screen, tmp)
             phase_s["11 list tools at scale"] = time.perf_counter() - t0
+            no_degradation(utils, "11 list tools at scale")
             t0 = time.perf_counter()
             long_guide(torch, dp_cuda, dp_screen, tmp)
             phase_s["12 long guide"] = time.perf_counter() - t0
+            no_degradation(utils, "12 long guide")
 
             # 13. The roofline probes and every kernel's bound
             t0 = time.perf_counter()
@@ -2248,6 +2659,7 @@ def main() -> int:
             probe_err, probe_ms = probes_vs_plain(torch, np, dp_cuda, probes, device)
             roof, probe_launches = roofline_run(dp_cuda, probes, device)
             phase_s["13 probes and roofline"] = time.perf_counter() - t0
+            no_degradation(utils, "13 probes and roofline")
 
             # 14. Resident serving at 1 Gb
             t0 = time.perf_counter()
@@ -2258,6 +2670,21 @@ def main() -> int:
             max_err = max(max_err, serve_errs["screen_dual"])
             multi_err = max(multi_err, serve_errs["screen_multi"])
             phase_s["14 resident serving"] = time.perf_counter() - t0
+            no_degradation(utils, "14 resident serving")
+
+            # 15. Device faults on the card: degraded and counted, or propagated
+            t0 = time.perf_counter()
+            faults_on_the_card(torch, np, dp_cuda, dp_screen, gs, scorer, device, tmp)
+            phase_s["15 faults"] = time.perf_counter() - t0
+
+            # 16. The window split over a mesh, and --distributed
+            t0 = time.perf_counter()
+            mesh_launches = mesh_and_distributed(torch, np, dp_cuda, dp_screen, gs, scorer,
+                                                 device, tmp)
+            dual_launches += mesh_launches["screen_dual"]
+            multi_launches += mesh_launches["screen_multi"]
+            phase_s["16 mesh and distributed"] = time.perf_counter() - t0
+            no_degradation(utils, "16 mesh and distributed")
     finally:
         stop_processes(host_pool)
 

@@ -1,9 +1,10 @@
 """Whole-contig shards and their merge in the port
 (``calitas_tpu_torch/parallel/multihost.py``, ``SearchReference
 --process-index/--process-count``, ``MergeHitTables``), mirroring
-``tests/test_multihost.py`` without ``--distributed``: the shards' merged
-table must equal the JAX package's single host-engine run with
-``time_stamp`` and ``aligner_version`` blanked."""
+``tests/test_multihost.py``, ``--distributed`` through torch.distributed
+over gloo included: the shards' merged table must equal the JAX
+package's single host-engine run with ``time_stamp`` and
+``aligner_version`` blanked."""
 
 from __future__ import annotations
 
@@ -160,3 +161,84 @@ def test_process_args_validation(tmp_path, engine):
         with pytest.raises(ValueError):
             port_sr.run(**common, **bad)
     assert not (tmp_path / "o.txt").exists()
+
+
+def test_distributed_flag_two_processes(tmp_path):
+    """``--distributed`` end to end: two processes initialize
+    torch.distributed over gloo on localhost from ``RANK`` /
+    ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT`` (no
+    ``--process-index``), take their shards from their rank, and their
+    merged table equals the single run (tests/test_multihost.py's
+    counterpart)."""
+    import os
+    import socket
+
+    rng = np.random.default_rng(23)
+    b = ReferenceSetBuilder(assembly="dist")
+    for i in range(3):
+        seq = "".join(rng.choice(list("ACGT"), 2500 + 400 * i))
+        seq = seq[:401] + "CTTGCCCCACAGGGCAGTAATGG" + seq[424:]
+        b.add(f"chr{i + 1}").add(seq)
+    ref = b.to_file(tmp_path / "ref.fa")
+    cmd = [sys.executable, "-m", "calitas_tpu_torch", "SearchReference", "-i", GUIDE,
+           "-I", "g", "-r", str(ref), "-t", "1", "--engine", "gpu", "--device", "cpu"]
+    with socket.socket() as s:  # a free localhost port for the rendezvous
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs, host_files = [], []
+    for rank in range(2):
+        out = tmp_path / f"dhost{rank}.txt"
+        env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                   WORLD_SIZE="2", RANK=str(rank))
+        procs.append(subprocess.Popen(cmd + ["-o", str(out), "--distributed"], env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+        host_files.append(str(out))
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=240)
+            assert p.returncode == 0, err.decode()[-2000:]
+            assert "torch.distributed: rank" in err.decode()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    final = tmp_path / "dmerged.txt"
+    subprocess.run([sys.executable, "-m", "calitas_tpu_torch", "MergeHitTables",
+                    "-i", *host_files, "-o", str(final), "-r", str(ref)],
+                   check=True, capture_output=True)
+    merged = rows(final)
+    assert merged == jax_single(tmp_path, ref)
+    assert len(merged) >= 3
+    h0, h1 = (set(rows(f)) for f in host_files)
+    assert h0 and h1 and not (h0 & h1)
+    assert (h0 | h1) == set(merged)
+
+
+def test_distributed_identity_and_teardown(tmp_path, monkeypatch):
+    """In one process (world size 1): an explicit process index or count
+    must agree with torch.distributed's, and the process group is
+    destroyed when run() ends, by an error too."""
+    import socket
+
+    import torch.distributed as dist
+
+    b = ReferenceSetBuilder(assembly="one")
+    b.add("c1").add("ACGT" * 100 + "CTTGCCCCACAGGGCAGTAATGG" + "ACGT" * 100)
+    ref = b.to_file(tmp_path / "ref.fa")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for var, value in (("MASTER_ADDR", "localhost"), ("MASTER_PORT", str(port)),
+                       ("WORLD_SIZE", "1"), ("RANK", "0")):
+        monkeypatch.setenv(var, value)
+    common = dict(guide=GUIDE, guide_id="g", engine="host", threads=1, distributed=True)
+    for bad in (dict(process_index=1), dict(process_count=2)):
+        with pytest.raises(ValueError, match="disagrees with torch.distributed"):
+            port_sr.run(ref=ref, output=tmp_path / "o.txt", **common, **bad)
+        assert not dist.is_initialized()
+    with pytest.raises(FileNotFoundError):
+        port_sr.run(ref=tmp_path / "missing.fa", output=tmp_path / "o.txt", **common)
+    assert not dist.is_initialized()
+    port_sr.run(ref=ref, output=tmp_path / "o.txt", process_count=1, **common)
+    assert not dist.is_initialized()
+    assert rows(tmp_path / "o.txt") == jax_single(tmp_path, ref)

@@ -105,11 +105,30 @@ def test_engine_resolution():
             resolve_engine("gpu")
 
 
-def test_unported_features_raise(tmp_path):
+def test_unported_features_raise(tmp_path, monkeypatch, capsys):
+    """Nothing of the reference's CLI is left unported: the port's
+    SearchReference takes every flag of the JAX package's, none is refused
+    as not ported, and ``--distributed`` reaches torch.distributed, which
+    needs its environment."""
+    from calitas_tpu import cli as jax_cli
+
+    def sub_flags(parser, command):
+        sub = next(a for a in parser._actions if a.choices and command in a.choices)
+        return {o: a.help for a in sub.choices[command]._actions for o in a.option_strings}
+
+    port = sub_flags(cli.build_parser(), "SearchReference")
+    assert set(sub_flags(jax_cli.build_parser(), "SearchReference")) <= set(port)
+    assert not any("not ported" in (h or "").lower() for h in port.values())
+    assert not hasattr(cli, "_NOT_PORTED")
+
     guide, ref = _reference(tmp_path, 4, "3prime", n=5_000)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        cli.main(["SearchReference", "-i", guide, "-I", "g", "-r", str(ref),
-                  "--distributed"])
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    out = tmp_path / "o.txt"
+    assert cli.main(["SearchReference", "-i", guide, "-I", "g", "-r", str(ref),
+                     "-o", str(out), "--engine", "host", "--distributed"]) == 1
+    assert "env:// rendezvous" in capsys.readouterr().err
+    assert not out.exists()
 
 
 def test_profile_dir_writes_a_trace(tmp_path):

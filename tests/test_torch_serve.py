@@ -2,8 +2,9 @@
 resident search's table equals a fresh run of the port and the JAX
 package's host-engine table (``time_stamp`` and ``aligner_version``
 blanked), the JSON line protocol answers as ``tests/test_serve.py``
-expects of the JAX package's server, and the resident arrays are staged
-once, never written and never replaced by a host fallback.  The gpu engine
+expects of the JAX package's server, the resident arrays are staged
+once and never written, and a contig whose staging fails is served from
+the host, as the JAX package's server serves it.  The gpu engine
 runs here on ``device="cpu"``: the screens' plain PyTorch versions."""
 
 from __future__ import annotations
@@ -226,13 +227,41 @@ def test_stage_runs_at_construction_only(genome, monkeypatch):
     assert calls == [60000, 40000]
 
 
-def test_staging_error_leaves_the_constructor(genome, monkeypatch):
-    """No host fallback: an error while staging propagates."""
-    ref, _vcf = genome
+def test_staging_error_leaves_the_constructor(genome, tmp_path, monkeypatch, caplog):
+    """A device fault while chr2 is staged degrades, as the reference's
+    server does: the constructor returns with chr1 resident, logs a
+    WARNING and counts one; every request aligns chr2 on the host (no new
+    staging) and its table equals a fresh run's.  A programming error in
+    staging still leaves the constructor."""
+    from calitas_tpu_torch import utils
 
-    def boom(self, bases):
-        raise RuntimeError("staging failed on purpose")
+    ref, vcf = genome
+    want = port_fresh(tmp_path, "f", ref, guide=GUIDE, guide_id="g1", variants=vcf)
+    orig = GenomeScreen.stage
+    calls = []
 
-    monkeypatch.setattr(GenomeScreen, "stage", boom)
-    with pytest.raises(RuntimeError, match="staging failed on purpose"):
+    def chr2_fails(self, bases):
+        calls.append(len(bases))
+        if len(bases) == 40000:
+            raise torch.cuda.OutOfMemoryError("staging failed on purpose")
+        return orig(self, bases)
+
+    monkeypatch.setattr(GenomeScreen, "stage", chr2_fails)
+    utils.reset_degraded()
+    with caplog.at_level("WARNING"):
+        s = ResidentSearcher(ref, vcf, threads=1, engine="gpu", device="cpu")
+    assert list(s._staged) == ["chr1"]
+    assert utils.DEGRADED == {**dict.fromkeys(utils.DEGRADED, 0), "resident_staging": 1}
+    assert any("Staging failed for chr2" in r.getMessage() and r.exc_info
+               for r in caplog.records if r.levelname == "WARNING")
+    for _ in range(2):
+        assert blank(s.search(GUIDE, "g1")) == want
+    assert calls == [60000, 40000]
+    assert utils.DEGRADED["staging"] == 0
+
+    def bug(self, bases):
+        raise TypeError("planted bug")
+
+    monkeypatch.setattr(GenomeScreen, "stage", bug)
+    with pytest.raises(TypeError, match="planted bug"):
         ResidentSearcher(ref, threads=1, engine="gpu", device="cpu")
