@@ -18,8 +18,8 @@ Each kernel is built from the repository's source with ``nvcc`` at first
 use, into ``csrc/build/`` (git-ignored), keyed by a hash of the source
 and flags, and loaded with ``ctypes`` through its plain C interface.
 :func:`build_all` starts one ``nvcc`` per source, all at once.  A kernel
-that does not build, load or launch raises :class:`KernelError`, which no
-caller degrades on (``utils.degradable``).
+that does not build, load or launch, or faults while it runs, raises
+:class:`KernelError`, which no caller degrades on (``utils.degradable``).
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ from calitas_tpu_torch.ops.dp_screen import (
     screen_multi_reference,
     screen_rows_reference,
 )
-from calitas_tpu_torch.utils import KernelError
+from calitas_tpu_torch.utils import KernelError, kernel_execution_fault
 
 logger = logging.getLogger("calitas_tpu_torch.screen")
 
@@ -385,7 +385,9 @@ def readback(dev_out: tuple, finish):
     pinned host memory without blocking, behind a recorded event that
     ``resolve`` waits on; ``finish`` turns the host numpy arrays into the
     result.  The copies and the event go to the current stream of the
-    tensors' device, so a launching thread's work stays in its order."""
+    tensors' device, so a launching thread's work stays in its order.  A
+    kernel that faulted while it ran shows at the wait, and raises
+    :class:`KernelError`."""
     dev = dev_out[0].device
     event = None
     if dev.type == "cuda":
@@ -403,10 +405,19 @@ def readback(dev_out: tuple, finish):
 
     def resolve():
         if event is not None:
-            event.synchronize()
+            _wait(event)
         return finish(*(h.numpy() for h in host))
 
     return resolve
+
+
+def _wait(event) -> None:
+    try:
+        event.synchronize()
+    except RuntimeError as ex:
+        if kernel_execution_fault(ex):
+            raise KernelError(f"a kernel faulted while it ran: {ex}") from ex
+        raise
 
 
 def screen_multi(

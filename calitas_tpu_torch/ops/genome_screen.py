@@ -354,18 +354,25 @@ class GenomeScreen:
         return [(i0, n_seg, self._segment(genome, i0, n_seg, launch))
                 for i0, n_seg in spans]
 
+    def _upload(self, genome, arr: np.ndarray) -> dict:
+        """``{device: arr}`` on the device of ``genome``, once per guide
+        group."""
+        return {genome.device: dp_cuda.to_device(arr, genome.device)}
+
     def _segment(self, genome, i0: int, n: int, launch):
         """``resolve`` of windows [i0, i0 + n): ``launch(genome, i0, n)``'s
         device results, read back without blocking (``dp_cuda.readback``)
         as (chain flags [..., 2, n] bool, ranges [..., 2, n, 2] uint8)."""
         return dp_cuda.readback(launch(genome, i0, n), _chain_result(n))
 
-    def _screen_span_multi(self, genome, qvals, min_scores, pam_gate, base0, n, step):
+    def _screen_span_multi(
+        self, genome, qvals, min_scores, ms_dev, pam_gate, base0, n, step
+    ):
         """One multi-guide screen over windows [base0/step, +n), routed
         as :meth:`_screen_span`: device tensors of bit-packed flags [G, 2,
-        ceil(n/8)] and coarse ranges [G, 2, n, 2]."""
+        ceil(n/8)] and coarse ranges [G, 2, n, 2].  ``ms_dev`` is
+        ``min_scores`` as a [G, 1, 1] tensor on the genome's device."""
         s = self.scorer
-        ms_dev = dp_cuda.to_device(min_scores.reshape(-1, 1, 1), genome.device)
         best, ranges = _multi_screen(qvals, genome.device)(
             genome, qvals, min_scores, base0=base0, step=step, n_windows=n,
             window=self.window, match=s.match_score,
@@ -398,9 +405,12 @@ class GenomeScreen:
             return []
         genome, qvals, gate = self._prepare(genome, dp_queries, pam_spec)
         ms = np.asarray(min_scores, dtype=np.int32)
+        ms_dev = self._upload(genome, ms.reshape(-1, 1, 1))
 
         def launch(g, s0, n):
-            return self._screen_span_multi(g, qvals, ms, gate, s0 * step, n, step)
+            return self._screen_span_multi(
+                g, qvals, ms, ms_dev[g.device], gate, s0 * step, n, step
+            )
 
         return [(i0, n_seg, self._segment(genome, i0, n_seg, launch))
                 for i0, n_seg in spans]
@@ -627,6 +637,16 @@ class ShardedGenomeScreen(GenomeScreen):
         for dev, g in self._replicas(genome).items():
             out[dev], qvals, gate = super()._prepare(g, dp_queries, pam_spec)
         return out, qvals, gate
+
+    def _upload(self, genome: dict, arr: np.ndarray) -> dict:
+        """``{device: arr}`` on every device of the replicas ``genome``,
+        once per guide group, kept allocated until each entry's stream is
+        done with it."""
+        out = {dev: dp_cuda.to_device(arr, dev) for dev in genome}
+        for dev, stream in zip(self.mesh, self._streams):
+            if stream is not None:
+                out[dev].record_stream(stream)
+        return out
 
     def _segment(self, genome: dict, i0: int, n: int, launch):
         """Windows [i0, i0 + n) as one span per mesh entry, each launched

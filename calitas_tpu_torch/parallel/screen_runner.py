@@ -28,7 +28,8 @@ window; a segment whose readback fails sends that segment and every
 later one of the contig to the host unscreened, while earlier segments
 keep their flags.  The host finish of an unscreened window is the host
 engine's, so the table does not change.  A kernel that does not build or
-launch (``utils.KernelError``), a query the kernels do not take
+launch (``utils.KernelError``) or that faults while it runs
+(``utils.kernel_execution_fault``), a query the kernels do not take
 (``NotImplementedError``) and programming errors propagate.
 """
 
@@ -46,11 +47,7 @@ from calitas_tpu_torch.core.guide import Guide
 from calitas_tpu_torch.core.sequence import revcomp
 from calitas_tpu_torch.io.fasta import IndexedFasta
 from calitas_tpu_torch.ops import dp_cuda
-from calitas_tpu_torch.ops.genome_screen import (
-    GenomeScreen,
-    ShardedGenomeScreen,
-    range_block,
-)
+from calitas_tpu_torch.ops.genome_screen import GenomeScreen, range_block
 from calitas_tpu_torch.utils import degradable, note_degraded
 
 logger = logging.getLogger("calitas_tpu_torch.SearchReference")
@@ -87,9 +84,7 @@ def screened_search(
     *,
     window_size: int,
     hit_spec: dict,
-    screen: Optional[GenomeScreen] = None,
-    device=None,
-    mesh=None,
+    screen: GenomeScreen,
     threads: int = 1,
     swallow_errors: bool = False,
     prestaged: Optional[dict] = None,
@@ -100,21 +95,13 @@ def screened_search(
     RenderedBlock of finished 34-column rows.  ``hit_spec`` carries the
     run-scoped row fields (ref_path, aligner_id, arguments, vcf_id,
     timestamp, aligner_version).  Contigs outer (staged once), guides
-    inner.  Without a ``screen`` one is built: a
-    :class:`ShardedGenomeScreen` over ``mesh`` when it has two or more
-    entries, else a :class:`GenomeScreen` on its one entry or on
-    ``device``.  ``prestaged`` maps contig names to arrays that the
+    inner.  ``screen`` is a :class:`GenomeScreen`, or a
+    :class:`~calitas_tpu_torch.ops.genome_screen.ShardedGenomeScreen` that splits each segment over a mesh.
+    ``prestaged`` maps contig names to arrays that the
     screen's ``stage`` already made (a resident genome), or to
     :data:`HOST_ONLY`: those contigs are neither read nor staged again,
     and the screens never write into them (PAM bits go into a copy per
     guide group)."""
-    if screen is None:
-        if mesh is not None and len(mesh) > 1:
-            screen = ShardedGenomeScreen(aligner.scorer, mesh, window=window_size)
-        else:
-            screen = GenomeScreen(
-                aligner.scorer, mesh[0] if mesh else device, window=window_size
-            )
     names = [chrom] if chrom is not None else fasta.names
     groups = _guide_groups(tasks, align_kwargs)
     for (q_len, _step, _pspec), group in groups.items():

@@ -780,7 +780,7 @@ def screened_variant_windows_multi(
     the reference's does: every window of that batch is flagged for every
     guide (a superset, so the table does not change), with a WARNING and
     one count in ``utils.DEGRADED["variant_screen"]``.  A kernel that does
-    not build or launch, and programming errors, propagate."""
+    not build, launch or run, and programming errors, propagate."""
     import torch
 
     from calitas_tpu_torch.core.sequence import TARGET_MASK_TABLE, encode_query

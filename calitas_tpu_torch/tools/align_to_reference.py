@@ -22,8 +22,8 @@ batch.  Engines:
 A device fault in a batch's pair screen degrades, as the reference's
 does: that batch and every later one run unscreened on the host (the
 same table), with a WARNING and one count in
-``utils.DEGRADED["pair_screen"]``.  A kernel that does not build or
-launch, and programming errors, propagate.
+``utils.DEGRADED["pair_screen"]``.  A kernel that does not build,
+launch or run, and programming errors, propagate.
 """
 
 from __future__ import annotations

@@ -18,7 +18,7 @@ aln.startOffset.  Engines:
 A device fault in the pair screen degrades, as the reference's does: the
 pairs run both passes on the host with no bounds (the same table), with
 a WARNING and one count in ``utils.DEGRADED["pair_screen"]``.  A kernel
-that does not build or launch, and programming errors, propagate.
+that does not build, launch or run, and programming errors, propagate.
 """
 
 from __future__ import annotations

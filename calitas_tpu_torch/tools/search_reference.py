@@ -25,9 +25,9 @@ checkpoint each finished contig to resume after a crash
 (``search/checkpoint.py``).  On the gpu engine a ``mesh``
 (``parallel/mesh.py``) of two or more devices splits both passes' screens
 into one span per entry.  A device fault degrades to host alignment with
-the same table (``parallel/screen_runner.py``, ``search/variants.py``).  Resident serving (``serve.py``) hands in
-its VCF index, screen and staged contigs through ``run``'s underscored
-keywords.
+the same table (``parallel/screen_runner.py``, ``search/variants.py``).
+Resident serving (``serve.py``) hands in its VCF index, screen and staged
+contigs through ``run``'s underscored keywords.
 """
 
 from __future__ import annotations
@@ -125,186 +125,183 @@ def run(
     rerun with the same inputs skips the contigs it holds.  The
     underscored keywords replace what the run would build itself; the
     host engine ignores ``_screen`` and ``_prestaged``."""
-    dist = None
-    if distributed:
-        import torch.distributed as dist
+    if distributed:  # locals() holds exactly run's arguments here
+        return _in_process_group(run, locals())
+    run_start = time.perf_counter()
+    if ref is None:
+        raise ValueError("SearchReference requires a reference FASTA (ref=)")
+    screen_device = resolve_engine(engine, device)
+    if screen_device is not None and mesh is not None:
+        mesh = tuple(mesh)
+        if len(mesh) == 1:
+            screen_device, mesh = resolve_device(mesh[0]), None
+    profiler = None
+    if profile_dir:
+        import torch.profiler as tp
 
-        process_index, process_count = _init_distributed(
-            dist, process_index, process_count
-        )
-    try:
-        run_start = time.perf_counter()
-        if ref is None:
-            raise ValueError("SearchReference requires a reference FASTA (ref=)")
-        screen_device = resolve_engine(engine, device)
-        if screen_device is not None and mesh is not None:
-            mesh = tuple(mesh)
-            if len(mesh) == 1:
-                screen_device, mesh = resolve_device(mesh[0]), None
-        profiler = None
-        if profile_dir:
-            import torch.profiler as tp
+        activities = [tp.ProfilerActivity.CPU]
+        if screen_device is not None and screen_device.type == "cuda":
+            activities.append(tp.ProfilerActivity.CUDA)
+        profiler = tp.profile(activities=activities)
+        profiler.start()
 
-            activities = [tp.ProfilerActivity.CPU]
-            if screen_device is not None and screen_device.type == "cuda":
-                activities.append(tp.ProfilerActivity.CUDA)
-            profiler = tp.profile(activities=activities)
-            profiler.start()
+    ref = Path(ref)
+    dictionary = extract_dictionary(ref)  # required (SearchReference.scala:478-484)
+    ref_file = IndexedFasta(ref)
+    shard_contigs = _shard(dictionary, chrom, process_index, process_count)
+    aligner = SequentialAligner(
+        mismatch_net_cost=guide_mismatch_net_cost,
+        pam_mismatch_net_cost=pam_mismatch_net_cost,
+        genome_gap_net_cost=genome_gap_net_cost,
+        guide_gap_net_cost=guide_gap_net_cost,
+    )
+    max_total_diffs_actual = (
+        max_total_diffs
+        if max_total_diffs is not None
+        else max_guide_diffs + max_gaps_between_guide_and_pam + max_pam_mismatches
+    )
+    arguments = core_parameters_string(
+        max_variants, window_size, max_guide_diffs, max_pam_mismatches,
+        max_gaps_between_guide_and_pam, max_total_diffs_actual, max_overlap,
+        guide_mismatch_net_cost, pam_mismatch_net_cost, genome_gap_net_cost,
+        guide_gap_net_cost,
+    )
+    if guide_specs is None:
+        if guide is None or guide_id is None:
+            raise ValueError("Provide either guide+guide_id or guide_specs")
+        guide_specs = [(guide_id, guide, tuple(auxiliary_pams))]
+    specs = [
+        (gid, gstr, Guide.parse(gstr, aux)) for gid, gstr, aux in guide_specs
+    ]
 
-        ref = Path(ref)
-        dictionary = extract_dictionary(ref)  # required (SearchReference.scala:478-484)
-        ref_file = IndexedFasta(ref)
-        shard_contigs = _shard(dictionary, chrom, process_index, process_count)
-        aligner = SequentialAligner(
-            mismatch_net_cost=guide_mismatch_net_cost,
-            pam_mismatch_net_cost=pam_mismatch_net_cost,
-            genome_gap_net_cost=genome_gap_net_cost,
-            guide_gap_net_cost=guide_gap_net_cost,
+    # Completeness-guarantee check (SearchReference.scala:433-441): warn
+    # when custom costs can lose valid alignments.
+    mags = [abs(guide_mismatch_net_cost), abs(genome_gap_net_cost),
+            abs(guide_gap_net_cost)]
+    if (max_guide_diffs + 1) * min(mags) <= max_guide_diffs * max(mags):
+        logger.warning(
+            "Scoring constraint violated: (max-guide-diffs+1)*min_cost must "
+            "exceed max-guide-diffs*max_cost or alignments within the given "
+            "limits may be missed (min=%d max=%d max-guide-diffs=%d).",
+            min(mags), max(mags), max_guide_diffs,
         )
-        max_total_diffs_actual = (
-            max_total_diffs
-            if max_total_diffs is not None
-            else max_guide_diffs + max_gaps_between_guide_and_pam + max_pam_mismatches
-        )
-        arguments = core_parameters_string(
-            max_variants, window_size, max_guide_diffs, max_pam_mismatches,
-            max_gaps_between_guide_and_pam, max_total_diffs_actual, max_overlap,
-            guide_mismatch_net_cost, pam_mismatch_net_cost, genome_gap_net_cost,
-            guide_gap_net_cost,
-        )
-        if guide_specs is None:
-            if guide is None or guide_id is None:
-                raise ValueError("Provide either guide+guide_id or guide_specs")
-            guide_specs = [(guide_id, guide, tuple(auxiliary_pams))]
-        specs = [
-            (gid, gstr, Guide.parse(gstr, aux)) for gid, gstr, aux in guide_specs
-        ]
 
-        # Completeness-guarantee check (SearchReference.scala:433-441): warn
-        # when custom costs can lose valid alignments.
-        mags = [abs(guide_mismatch_net_cost), abs(genome_gap_net_cost),
-                abs(guide_gap_net_cost)]
-        if (max_guide_diffs + 1) * min(mags) <= max_guide_diffs * max(mags):
-            logger.warning(
-                "Scoring constraint violated: (max-guide-diffs+1)*min_cost must "
-                "exceed max-guide-diffs*max_cost or alignments within the given "
-                "limits may be missed (min=%d max=%d max-guide-diffs=%d).",
-                min(mags), max(mags), max_guide_diffs,
+    base_builder = HitBuilder(
+        guide_id=specs[0][0],
+        guide=specs[0][2],
+        ref=ref_file,
+        vcf=variants,
+        aligner_id="CALITAS:SearchReference",
+        arguments=arguments,
+    )
+    builders = {specs[0][0]: base_builder}
+    for gid, _, g in specs[1:]:
+        builders[gid] = base_builder.copy(guide_id=gid, guide=g)
+    align_kwargs = dict(
+        max_guide_diffs=max_guide_diffs,
+        max_pam_diffs=max_pam_mismatches,
+        max_gaps_between_guide_and_pam=max_gaps_between_guide_and_pam,
+        max_total_diffs=max_total_diffs_actual,
+        max_overlap=max_overlap,
+    )
+
+    def step_for(guide_str: str) -> int:
+        window_overlap = (
+            len(guide_str) + max_guide_diffs + max_gaps_between_guide_and_pam - 1
+        )
+        return window_size - window_overlap
+
+    if screen_device is not None and window_size > 2048:
+        from calitas_tpu_torch.ops.genome_screen import range_block
+
+        # Ranges stay on at any width but get coarser (range_block
+        # doubles past 2048 columns): each candidate's DP slice widens
+        # by up to a block per side.  Worth a note, not a warning.
+        logger.info(
+            "--window-size %d > 2048: end-column ranges use coarser "
+            "%d-column blocks (slightly wider finish DP slices).",
+            window_size, range_block(window_size),
+        )
+
+    # Parse and index the VCF once per run (SearchReference.scala:227-231);
+    # every guide and checkpointed contig queries the one index.
+    vcf_index = None
+    if variants is not None:
+        from calitas_tpu_torch.io.vcf import VcfIndex
+
+        vcf_index = _vcf_index if _vcf_index is not None else VcfIndex(variants)
+
+    progress = ProgressLogger(logger, noun="windows", verb="Processed", unit=25_000)
+
+    def search(contig: Optional[str], out: list) -> None:
+        """Both passes over ``contig`` (the whole genome when None)."""
+        if screen_device is None:
+            _run_both_passes(
+                contig, out, specs, builders, aligner, ref_file, vcf_index,
+                max_variants, window_size, step_for, threads, align_kwargs,
+                progress,
             )
-
-        base_builder = HitBuilder(
-            guide_id=specs[0][0],
-            guide=specs[0][2],
-            ref=ref_file,
-            vcf=variants,
-            aligner_id="CALITAS:SearchReference",
-            arguments=arguments,
-        )
-        builders = {specs[0][0]: base_builder}
-        for gid, _, g in specs[1:]:
-            builders[gid] = base_builder.copy(guide_id=gid, guide=g)
-        align_kwargs = dict(
-            max_guide_diffs=max_guide_diffs,
-            max_pam_diffs=max_pam_mismatches,
-            max_gaps_between_guide_and_pam=max_gaps_between_guide_and_pam,
-            max_total_diffs=max_total_diffs_actual,
-            max_overlap=max_overlap,
-        )
-
-        def step_for(guide_str: str) -> int:
-            window_overlap = (
-                len(guide_str) + max_guide_diffs + max_gaps_between_guide_and_pam - 1
-            )
-            return window_size - window_overlap
-
-        if screen_device is not None and window_size > 2048:
-            from calitas_tpu_torch.ops.genome_screen import range_block
-
-            # Ranges stay on at any width but get coarser (range_block
-            # doubles past 2048 columns): each candidate's DP slice widens
-            # by up to a block per side.  Worth a note, not a warning.
-            logger.info(
-                "--window-size %d > 2048: end-column ranges use coarser "
-                "%d-column blocks (slightly wider finish DP slices).",
-                window_size, range_block(window_size),
-            )
-
-        # Parse and index the VCF once per run (SearchReference.scala:227-231);
-        # every guide and checkpointed contig queries the one index.
-        vcf_index = None
-        if variants is not None:
-            from calitas_tpu_torch.io.vcf import VcfIndex
-
-            vcf_index = _vcf_index if _vcf_index is not None else VcfIndex(variants)
-
-        progress = ProgressLogger(logger, noun="windows", verb="Processed", unit=25_000)
-
-        def search(contig: Optional[str], out: list) -> None:
-            """Both passes over ``contig`` (the whole genome when None)."""
-            if screen_device is None:
-                _run_both_passes(
-                    contig, out, specs, builders, aligner, ref_file, vcf_index,
-                    max_variants, window_size, step_for, threads, align_kwargs,
-                    progress,
-                )
-            else:
-                _screened_passes(
-                    contig, out, specs, builders, aligner, ref_file, vcf_index,
-                    max_variants, window_size, step_for, threads, align_kwargs,
-                    screen_device, mesh, _screen, _prestaged,
-                )
-
-        logger.info("Aligning to reference genome without variants.")
-        hits: list = []
-        if checkpoint is not None:
-            if shard_contigs is not None:
-                contigs = shard_contigs
-            else:
-                contigs = [chrom] if chrom is not None else ref_file.names
-            _checkpointed(
-                checkpoint, search, contigs, hits, builders, base_builder, ref,
-                arguments, variants, chrom, process_index, process_count,
-                guide_specs,
-            )
-        elif shard_contigs is not None:
-            for name in shard_contigs:
-                search(name, hits)
         else:
-            search(chrom, hits)
-        try:
-            _finalize(hits, max_overlap, dictionary, output, run_start, specs)
-        finally:
-            if profiler is not None:
-                profiler.stop()
-                Path(profile_dir).mkdir(parents=True, exist_ok=True)
-                profiler.export_chrome_trace(str(Path(profile_dir) / "trace.json"))
+            _screened_passes(
+                contig, out, specs, builders, aligner, ref_file, vcf_index,
+                max_variants, window_size, step_for, threads, align_kwargs,
+                screen_device, mesh, _screen, _prestaged,
+            )
+
+    logger.info("Aligning to reference genome without variants.")
+    hits: list = []
+    if checkpoint is not None:
+        if shard_contigs is not None:
+            contigs = shard_contigs
+        else:
+            contigs = [chrom] if chrom is not None else ref_file.names
+        _checkpointed(
+            checkpoint, search, contigs, hits, builders, base_builder, ref,
+            arguments, variants, chrom, process_index, process_count,
+            guide_specs,
+        )
+    elif shard_contigs is not None:
+        for name in shard_contigs:
+            search(name, hits)
+    else:
+        search(chrom, hits)
+    try:
+        _finalize(hits, max_overlap, dictionary, output, run_start, specs)
     finally:
-        if dist is not None:
-            dist.destroy_process_group()
+        if profiler is not None:
+            profiler.stop()
+            Path(profile_dir).mkdir(parents=True, exist_ok=True)
+            profiler.export_chrome_trace(str(Path(profile_dir) / "trace.json"))
 
 
-def _init_distributed(dist, process_index, process_count) -> tuple:
-    """Initialize the gloo process group from torch's environment
-    (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``): the
-    counterpart of the reference's ``jax.distributed.initialize``.  Returns
-    ``(process_index, process_count)``, which default to the rank and the
-    world size and must agree with them when given.  No collective touches
-    the data path: each process searches its whole-contig shard and
-    ``MergeHitTables`` joins the tables, so gloo serves on a card too."""
+def _in_process_group(run, kwargs: dict):
+    """``run(**kwargs)`` inside a gloo process group initialized from
+    torch's environment (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,
+    ``RANK``): the counterpart of the reference's
+    ``jax.distributed.initialize``.  ``process_index`` and
+    ``process_count`` default to the rank and the world size and must
+    agree with them when given.  The group is destroyed when the run
+    ends, errors included.  No collective touches the data path: each
+    process searches its whole-contig shard and ``MergeHitTables`` joins
+    the tables, so gloo serves on a card too."""
+    import torch.distributed as dist
+
     dist.init_process_group(backend="gloo", init_method="env://")
     try:
         rank, world = dist.get_rank(), dist.get_world_size()
-        for what, given, actual in (("process_index", process_index, rank),
-                                    ("process_count", process_count, world)):
+        for what, actual in (("process_index", rank), ("process_count", world)):
+            given = kwargs[what]
             if given is not None and given != actual:
                 raise ValueError(
                     f"{what} {given} disagrees with torch.distributed's {actual}"
                 )
-    except BaseException:
+        logger.info("torch.distributed: rank %d of %d.", rank, world)
+        return run(**{
+            **kwargs, "distributed": False,
+            "process_index": rank, "process_count": world,
+        })
+    finally:
         dist.destroy_process_group()
-        raise
-    logger.info("torch.distributed: rank %d of %d.", rank, world)
-    return rank, world
 
 
 def _shard(dictionary, chrom, process_index, process_count):
@@ -391,9 +388,10 @@ def _screened_passes(
     prestaged,
 ):
     """Both passes on the device screen (on ``screen`` and the
-    ``prestaged`` contigs when given), split over ``mesh`` when given.  The variant feeds start before
-    the reference pass so the window builder and slot screen overlap it;
-    an error in either pass closes every feed still producing."""
+    ``prestaged`` contigs when given), split over ``mesh`` when given.  The
+    variant feeds start before the reference pass so the window builder and
+    slot screen overlap it; an error in either pass closes every feed still
+    producing."""
     feeds = _start_variant_feeds(
         chrom, specs, aligner, ref_file, vcf_index, max_variants,
         align_kwargs, device, mesh,
@@ -468,6 +466,10 @@ def _screened_reference_pass(
     """Pass 1 on the device screen (SearchReference.scala:527-564), on
     ``screen`` and the ``prestaged`` contigs when given, else on ``device``
     or split over ``mesh``."""
+    from calitas_tpu_torch.ops.genome_screen import (
+        GenomeScreen,
+        ShardedGenomeScreen,
+    )
     from calitas_tpu_torch.parallel.screen_runner import (
         GuideTask,
         screened_search,
@@ -488,10 +490,14 @@ def _screened_reference_pass(
         timestamp=builder.timestamp,
         aligner_version=builder.aligner_version,
     )
+    if screen is None and mesh is not None:
+        screen = ShardedGenomeScreen(aligner.scorer, mesh, window=window_size)
+    elif screen is None:
+        screen = GenomeScreen(aligner.scorer, device, window=window_size)
     hits_progress = ProgressLogger(logger, noun="hits", verb="Collected", unit=25_000)
     for _task, wchrom, wstart, rows in screened_search(
-        ref_file, chrom, tasks, aligner, screen=screen, device=device,
-        mesh=mesh, window_size=window_size, hit_spec=hit_spec, threads=threads,
+        ref_file, chrom, tasks, aligner, screen=screen,
+        window_size=window_size, hit_spec=hit_spec, threads=threads,
         swallow_errors=True, prestaged=prestaged, **align_kwargs,
     ):
         # Columnar blocks append whole (the dedup reads their key arrays).

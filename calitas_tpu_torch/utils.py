@@ -50,9 +50,36 @@ class ProgressLogger:
 
 class KernelError(RuntimeError):
     """A fault of the port's own CUDA kernels: ``nvcc`` missing, a failed
-    build or library load, or a launch the kernel refused
-    (``ops/dp_cuda.py``, ``ops/probes.py``).  Never degradable: a host
-    fallback would hide a broken kernel behind an identical table."""
+    build or library load, a launch the kernel refused, or a kernel that
+    faulted while it ran (``ops/dp_cuda.py``, ``ops/probes.py``).  Never
+    degradable: a host fallback would hide a broken kernel behind an
+    identical table."""
+
+
+#: cudaGetErrorString's text for the faults that only a kernel's own
+#: execution raises (errors 700, 702, 710, 714-719).  torch reports them
+#: late, as a ``RuntimeError`` or, in newer releases, its subclass
+#: ``torch.AcceleratorError`` ("CUDA error: ..."), from whatever call next
+#: meets the device: a readback's synchronize, a copy, a later launch.
+#: The context stays broken after one, so every later call fails alike.
+_KERNEL_EXECUTION_FAULTS = (
+    "an illegal memory access was encountered",
+    "the launch timed out and was terminated",
+    "device-side assert triggered",
+    "hardware stack error",
+    "an illegal instruction was encountered",
+    "misaligned address",
+    "operation not supported on global/shared address space",
+    "invalid program counter",
+    "unspecified launch failure",
+)
+
+
+def kernel_execution_fault(exc: BaseException) -> bool:
+    """True if ``exc`` reports a device kernel that faulted while it ran:
+    a fault of the program (the port's kernels or torch's), not of the
+    device."""
+    return any(m in str(exc) for m in _KERNEL_EXECUTION_FAULTS)
 
 
 #: Exception types that always indicate a host-side programming error.
@@ -83,9 +110,11 @@ def degradable(exc: BaseException) -> bool:
     torch reports device faults as ``torch.cuda.OutOfMemoryError`` or as
     a ``RuntimeError`` ("CUDA error: ...") from a copy, an allocation or a
     synchronize: both degrade.  :class:`KernelError` (a kernel that does
-    not build or launch) and ``NotImplementedError`` (a query the kernels
-    do not take on CUDA; a ``RuntimeError`` subclass) never do."""
-    if isinstance(exc, (KernelError, NotImplementedError)):
+    not build or launch), a kernel that faulted while it ran
+    (:func:`kernel_execution_fault`, wherever it surfaces) and
+    ``NotImplementedError`` (a query the kernels do not take on CUDA; a
+    ``RuntimeError`` subclass) never do."""
+    if isinstance(exc, (KernelError, NotImplementedError)) or kernel_execution_fault(exc):
         return False
     return not isinstance(exc, _PROGRAMMING_ERRORS)
 

@@ -156,7 +156,9 @@ Phases, each raising on failure:
    read exactly the one injected fault; config 3 with ``-m 300000000``
    (a score set whose end shift leaves int32, which the dual kernel's
    launch refuses) must fail with ``KernelError``, write no table and
-   degrade nothing; a ``ResidentSearcher`` on a 6 + 4 Mb genome whose
+   degrade nothing; so must config 3 in a process of its own whose dual
+   kernel reads 1 TiB past its genome (a real illegal address, reported
+   only at a later call); a ``ResidentSearcher`` on a 6 + 4 Mb genome whose
    4 Mb contig fails to stage must serve a request with a fresh run's
    table, launching the dual kernel for the resident contig's segments
    only.
@@ -192,7 +194,8 @@ kernel's times are those of the launcher's L at phase 9's shape (a), the
 list tools' per-row mode; each bound is that of the timed call's
 inputs); the last line is ``{"ok":
 true, "device": {...}}``.  Exits non-zero, without that line, when there
-is no CUDA device or the repository is missing.
+is no CUDA device or the repository is missing.  ``--only 15 16`` runs
+the build and those phases alone (see :func:`phases_alone`).
 """
 
 from __future__ import annotations
@@ -2101,6 +2104,60 @@ def fail_segment(screen_cls, k: int, exc):
     return screen_contig_async
 
 
+#: phase 15's child process: the port's CLI with every dual-kernel launch
+#: handed the genome's address plus 1 TiB, so the kernel faults while it
+#: runs (an illegal address breaks the process's CUDA context, hence a
+#: process of its own).  Prints what left ``cli.main`` and the counts.
+FAULT_CHILD = r"""
+import json, os, sys, traceback
+from calitas_tpu_torch import cli, utils
+from calitas_tpu_torch.ops import dp_cuda
+
+class FarGenome:
+    def __init__(self, t):
+        self._t = t
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+    def data_ptr(self):
+        return self._t.data_ptr() + (1 << 40)
+
+launch = dp_cuda._screen_dual
+dp_cuda._screen_dual = lambda genome, *a: launch(FarGenome(genome), *a)
+try:
+    out = {"rc": cli.main(sys.argv[1:])}
+except BaseException as ex:
+    tb = traceback.extract_tb(ex.__traceback__)
+    where = ([f for f in tb if "calitas_tpu_torch" in f.filename] or tb)[-1]
+    out = {"raised": type(ex).__name__, "message": str(ex)[:120],
+           "kernel_fault": isinstance(ex, dp_cuda.KernelError)
+                           or utils.kernel_execution_fault(ex),
+           "at": f"{os.path.relpath(where.filename)}:{where.lineno} {where.name}"}
+print(json.dumps({**out, "degraded": utils.DEGRADED}), flush=True)
+sys.exit(1 if "raised" in out else 0)
+"""
+
+
+def kernel_fault_child(argv: list) -> None:
+    """Config 3 with a dual kernel that faults while it runs, in a child
+    process: it must fail with the fault (``KernelError`` from a readback,
+    or torch's own report, a ``RuntimeError`` or ``AcceleratorError``,
+    from the next call that meets the card), write no table and degrade
+    nothing."""
+    out = Path(argv[argv.index("-o") + 1])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", FAULT_CHILD, *map(str, argv)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    got = json.loads(lines[-1]) if lines else {}
+    log(f"[faults] dual kernel 1 TiB past its genome, in a child: exit {proc.returncode}, "
+        f"{got} in {time.perf_counter() - t0:.3f} s")
+    if (proc.returncode == 0 or not got.get("kernel_fault")
+            or "illegal memory access" not in got.get("message", "")
+            or any(got.get("degraded", {"?": 1}).values()) or out.exists()):
+        raise AssertionError(f"a kernel fault did not fail the run: table written "
+                             f"{out.exists()}; stderr {proc.stderr[-3000:]}")
+
+
 def faults_on_the_card(torch, np, dp_cuda, dp_screen, gs, scorer, device, tmp: Path) -> None:
     """Phase 15: injected device faults degrade to the host with the
     golden table and are counted; a real kernel fault propagates."""
@@ -2163,6 +2220,7 @@ def faults_on_the_card(torch, np, dp_cuda, dp_screen, gs, scorer, device, tmp: P
     if out.exists() or any(utils.DEGRADED.values()):
         raise AssertionError(f"refused launch: table written {out.exists()}, "
                              f"degraded {utils.DEGRADED}")
+    kernel_fault_child([*argv, "-o", tmp / "config3_faulted.txt"])
 
     # A resident server whose staging of one contig fails.
     b = ReferenceSetBuilder(assembly="faults")
@@ -2755,5 +2813,48 @@ def main() -> int:
     return 0
 
 
+def phases_alone(names: list) -> int:
+    """``python3 chip_smoke.py --only 15 16``: the build, then the named
+    phases of 15 (faults) and 16 (mesh and ``--distributed``) alone, with
+    their checks; phase 16 also splits over every visible card when there
+    are several (``chiprun --chips 4``).  Prints no kernels line."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: a CUDA device is required", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from calitas_tpu_torch import utils
+    from calitas_tpu_torch.core.scoring import derive_scorer
+    from calitas_tpu_torch.device import resolve_device
+    from calitas_tpu_torch.ops import dp_cuda, dp_screen
+    from calitas_tpu_torch.ops import genome_screen as gs
+    from calitas_tpu_torch.parallel import host_pool
+
+    device = resolve_device("cuda")
+    log(f"[device] {torch.cuda.device_count()} x {torch.cuda.get_device_name(device)} | "
+        f"nvidia-smi: {nvidia_smi()}")
+    t0 = time.perf_counter()
+    dp_cuda.build_all(tuple(dp_cuda.SOURCES))
+    log(f"[build] {time.perf_counter() - t0:.1f} s")
+    phases = {"15": faults_on_the_card, "16": mesh_and_distributed}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for name in names:
+                t0 = time.perf_counter()
+                utils.reset_degraded()
+                phases[name](torch, np, dp_cuda, dp_screen, gs, derive_scorer(), device,
+                             Path(tmp))
+                if name == "16":
+                    no_degradation(utils, name)
+                log(f"[phase {name}] passed in {time.perf_counter() - t0:.1f} s")
+    finally:
+        stop_processes(host_pool)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--only"]:
+        sys.exit(phases_alone(sys.argv[2:]))
     sys.exit(main())

@@ -202,12 +202,21 @@ def test_variant_screen_programming_error_propagates(monkeypatch):
 
 
 def test_degradable_classification(monkeypatch, tmp_path):
-    """torch's device faults degrade; the port's kernel faults,
+    """torch's device faults degrade; the port's kernel faults (also a
+    kernel that faulted while it ran, wherever torch reports it),
     NotImplementedError and programming errors never do.  dp_cuda raises
-    KernelError where a kernel does not build or launch."""
+    KernelError where a kernel does not build or launch, and where a
+    readback meets a kernel that faulted."""
     assert degradable(torch.cuda.OutOfMemoryError("CUDA out of memory"))
-    assert degradable(RuntimeError("CUDA error: an illegal memory access was encountered"))
+    assert degradable(RuntimeError("CUDA error: out of memory"))
+    assert degradable(RuntimeError("CUDA error: uncorrectable ECC error encountered"))
     assert degradable(OSError("tunnel reset"))
+    for fault in utils._KERNEL_EXECUTION_FAULTS:
+        exc = RuntimeError(f"CUDA error: {fault}\nCUDA kernel errors might be "
+                           "asynchronously reported at some other API call")
+        assert utils.kernel_execution_fault(exc)
+        assert not degradable(exc)
+    assert not degradable(torch.AcceleratorError("CUDA error: unspecified launch failure"))
     assert not degradable(KernelError("screen_dual launch failed"))
     assert not degradable(NotImplementedError("Q > 48"))
     for exc in utils._PROGRAMMING_ERRORS:
@@ -221,6 +230,19 @@ def test_degradable_classification(monkeypatch, tmp_path):
 
     with pytest.raises(KernelError, match="screen_dual launch failed: CUDA error 9"):
         dp_cuda._raise_on(Lib, 9, "screen_dual")
+
+    class Event:
+        def __init__(self, msg):
+            self.msg = msg
+
+        def synchronize(self):
+            raise RuntimeError(self.msg)
+
+    with pytest.raises(KernelError, match="faulted while it ran: CUDA error: misaligned"):
+        dp_cuda._wait(Event("CUDA error: misaligned address"))
+    with pytest.raises(RuntimeError, match="out of memory") as info:
+        dp_cuda._wait(Event("CUDA error: out of memory"))
+    assert not isinstance(info.value, KernelError)
     monkeypatch.setattr(dp_cuda.shutil, "which", lambda _name: None)
     monkeypatch.setattr(dp_cuda, "Path", lambda _p: tmp_path / "no-nvcc")
     with pytest.raises(KernelError, match="nvcc not found"):
@@ -392,17 +414,22 @@ def test_out_of_memory_degrades_through_run(tmp_path, monkeypatch):
 ENTRY_POINTS = ["search_reference", "pairwise", "a2r", "serve"]
 
 
-@pytest.mark.parametrize("exc_type", [KernelError, NotImplementedError],
-                         ids=["KernelError", "NotImplementedError"])
+def _illegal_address(msg):
+    """torch's report of a kernel that faulted while it ran."""
+    return RuntimeError(f"CUDA error: an illegal memory access was encountered ({msg})")
+
+
+@pytest.mark.parametrize("exc_type", [KernelError, NotImplementedError, _illegal_address],
+                         ids=["KernelError", "NotImplementedError", "illegal_address"])
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
 def test_kernel_faults_propagate(list_inputs, monkeypatch, exc_type, entry):
-    """A kernel that does not build or launch and a query the kernels do
-    not take leave every entry point; nothing degrades, and no table is
-    written."""
+    """A kernel that does not build, launch or run and a query the
+    kernels do not take leave every entry point; nothing degrades, and no
+    table is written."""
     tmp, ref = list_inputs
     exc = exc_type("planted kernel fault")
     out = tmp / "out.txt"
-    with pytest.raises(exc_type, match="planted kernel fault"):
+    with pytest.raises(type(exc), match="planted kernel fault"):
         if entry == "search_reference":
             monkeypatch.setattr(GenomeScreen, "screen_contig_async", _raise(exc))
             port_sr.run(guide=PROTO2 + "nrg", guide_id="g", ref=ref, output=out,
@@ -417,6 +444,32 @@ def test_kernel_faults_propagate(list_inputs, monkeypatch, exc_type, entry):
     assert utils.DEGRADED == counts()
     if entry == "search_reference":
         assert not out.exists()
+
+
+@pytest.mark.parametrize("exc_type", [KernelError, RuntimeError],
+                         ids=["readback_KernelError", "RuntimeError"])
+@pytest.mark.parametrize("n_guides", [1, 2], ids=["dual", "multi"])
+def test_kernel_execution_fault_at_readback_propagates(tmp_path, monkeypatch, n_guides,
+                                                       exc_type):
+    """A kernel that faulted while it ran shows first at a segment's
+    readback, as dp_cuda.readback's KernelError or as torch's own
+    RuntimeError: run() fails with it (no host fallback for the segment
+    or the later ones), nothing degrades, and no table is written."""
+    ref = _genome(tmp_path, 2)
+    method = "screen_contig_async" if n_guides == 1 else "screen_contig_multi_async"
+    orig = getattr(GenomeScreen, method)
+    exc = exc_type("CUDA error: an illegal memory access was encountered")
+
+    def faulted(self, *a, **kw):
+        return [(i0, n, _raise(exc)) for i0, n, _res in orig(self, *a, **kw)]
+
+    monkeypatch.setattr(GenomeScreen, method, faulted)
+    specs = [("a", PROTO2 + "nrg", ()), ("b", PROTO + "nrg", ())][:n_guides]
+    with pytest.raises(exc_type, match="illegal memory access"):
+        port_sr.run(guide_specs=specs, ref=ref, output=tmp_path / "o.txt",
+                    engine="gpu", device="cpu", threads=1)
+    assert utils.DEGRADED == counts()
+    assert not (tmp_path / "o.txt").exists()
 
 
 @pytest.mark.parametrize("exc_type", utils._PROGRAMMING_ERRORS,

@@ -153,17 +153,17 @@ class TestShardedScreen:
         hit_spec = dict(ref_path=str(ref.path), aligner_id="a", arguments="args",
                         vcf_id="", timestamp="ts")
 
-        def run(mesh):
+        def run(screen):
             rows = []
             for _t, chrom, _start, rr in screened_search(
                 ref, None, [task], SequentialAligner(), window_size=1000,
-                device="cpu", mesh=mesh, hit_spec=hit_spec, **kw,
+                screen=screen, hit_spec=hit_spec, **kw,
             ):
                 rows += [(chrom, r._line) for r in rr]
             return rows
 
-        single_rows = run(None)
-        assert run(cpu_mesh(n)) == single_rows
+        single_rows = run(port_gs.GenomeScreen(SCORER, "cpu", window=1000))
+        assert run(port_gs.ShardedGenomeScreen(SCORER, cpu_mesh(n), window=1000)) == single_rows
         assert len(single_rows) > 0
 
 
