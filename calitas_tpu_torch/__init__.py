@@ -40,8 +40,11 @@ The device half:
   - tools/align_to_reference.py AlignToReference (best and all-hits modes)
   - serve.py                  resident serving: ResidentSearcher (contigs
                               staged once on the device), serve_stdio
+  - parallel/mesh.py          the device mesh (a tuple of torch.device) and
+                              the mesh batch screen, screen_on_mesh
   - cli.py                    the command line of the four tools,
                               MergeHitTables and Serve
+  - graft_entry.py            entry points: entry(), dryrun_multichip(n)
 """
 
 __version__ = "0.1.0"

@@ -221,9 +221,12 @@ def graph_times_ms(launches: dict, *, replay_ms: float = 2.0, trials: int = 5) -
     about ``replay_ms``, so that the replay's own start-up is a small share
     of the mean; each trial replays every key's graph in turn, so that a
     change of clock during the run falls on all keys alike.  CUDA events
-    around each replay, after a warm-up call and a warm-up replay."""
+    around each replay, after a warm-up call and a warm-up replay.  The
+    graphs are captured on a stream of the current device, which is the
+    device the launches must use."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    capture = torch.cuda.Stream()
     graphs = {}
     for key, launch in launches.items():
         launch()
@@ -233,7 +236,7 @@ def graph_times_ms(launches: dict, *, replay_ms: float = 2.0, trials: int = 5) -
         torch.cuda.synchronize()
         reps = min(1000, max(3, math.ceil(replay_ms / max(start.elapsed_time(end), 1e-3))))
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=capture):
             for _ in range(reps):
                 launch()
         graph.replay()

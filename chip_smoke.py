@@ -178,6 +178,18 @@ Phases, each raising on failure:
    visible device) with each span's lane count, and the dual kernel alone
    at config 3's grid and one 1 Gb segment's split over 1, 2 and 4
    streams.
+17. Entry points (``calitas_tpu_torch/graft_entry.py``): ``entry()``'s
+   step (B 64 x T 256 x Q 20) on this card must equal the plain version
+   bit for bit with one row-kernel launch; ``screen_on_mesh`` at phase
+   9's shape (d) (41,238 seeded rows x 1000, lengths 0..1000, config 3's
+   protospacer planted in every 1,000th row, its guide and min score, one
+   shared query) over 1, 2 and 4 spans of this card (and over every
+   visible card when there are several) must equal the plain version,
+   best and total, with one launch per span; prints each run's wall and
+   each span's kernel time (graph-timed) beside phase 9's (d);
+   ``dryrun_multichip(2)`` and ``(4)`` as spans of this card (and
+   ``dryrun_multichip`` over every visible card) must pass, launch all
+   three screens and give one table.
 
 After every phase but 15, ``utils.DEGRADED`` must read zero: no screen
 fell back to the host.  After the phases, passed or not, it stops every process it started and
@@ -188,14 +200,15 @@ The line before the last is a JSON object describing the kernels (the
 launch counts are those of the main paths: phases 4 and 14's requests
 and phase 16's mesh goldens for the dual kernel, phases 6, 7 and 14's
 requests and phase 16's mesh goldens for the multi-guide kernel, the gpu
-runs of phases 10 and 11 for the row kernel, phase 13's
-roofline run for the probes; the row
+runs of phases 10 and 11 for the row kernel, and for all three phase
+17's driven runs (``entry()``, ``screen_on_mesh``, the dry runs); phase
+13's roofline run for the probes; the row
 kernel's times are those of the launcher's L at phase 9's shape (a), the
 list tools' per-row mode; each bound is that of the timed call's
 inputs); the last line is ``{"ok":
 true, "device": {...}}``.  Exits non-zero, without that line, when there
-is no CUDA device or the repository is missing.  ``--only 15 16`` runs
-the build and those phases alone (see :func:`phases_alone`).
+is no CUDA device or the repository is missing.  ``--only 15 16 17``
+runs the build and those phases alone (see :func:`phases_alone`).
 """
 
 from __future__ import annotations
@@ -1214,6 +1227,7 @@ def rows_lanes_vs_plain(torch, np, dp_cuda, dp_screen, scorer, device) -> int:
 
 ROWS_Q = 20  # the timed shapes' query length (config 3's guide)
 ROW_MAIN = "a per-row 20000x256"  # the kernels line's shape for the row kernel
+ROW_ENTRY = "d shared 41238x1000"  # phase 17's shape: the mesh batch screen's
 
 
 def row_targets(torch, np, device, seed: int = 90) -> dict:
@@ -2270,24 +2284,31 @@ def resolve_all(np, segs) -> tuple:
             np.concatenate([r for _f, r in parts], axis=-2))
 
 
-def span_kernel_ms(torch, dp_cuda, gs, genome, qvals, kw: dict, k: int) -> float:
-    """ms of one dual-kernel grid split into ``k`` spans, each launched on
-    its own stream of the genome's card (the current stream waits for
-    all): CUDA events, mean of 20."""
-    streams = [torch.cuda.Stream(device=genome.device) for _ in range(k)]
-    spans = gs.mesh_spans(k, 0, kw["n_windows"])
+def spans_together_ms(torch, prepared: list) -> float:
+    """ms of prepared launches ``[(device, launch)]``, each on a stream of
+    its own on its device, all after the current stream and before it
+    goes on: CUDA events on the current stream, mean of 20."""
+    streams = [torch.cuda.Stream(device=dev) for dev, _launch in prepared]
 
-    def launch():
+    def launch_all():
         cur = torch.cuda.current_stream()
-        for (_e, s0, n), st in zip(spans, streams):
+        for st, (_dev, launch) in zip(streams, prepared):
             st.wait_stream(cur)
             with torch.cuda.stream(st):
-                dp_cuda.screen_dual(genome, qvals, **dict(
-                    kw, base0=kw["base0"] + s0 * kw["step"], n_windows=n))
+                launch()
         for st in streams:
             cur.wait_stream(st)
 
-    return cuda_time_ms(torch, launch, 20)
+    return cuda_time_ms(torch, launch_all, 20)
+
+
+def span_kernel_ms(torch, dp_cuda, gs, genome, qvals, kw: dict, k: int) -> float:
+    """ms of one dual-kernel grid split into ``k`` spans, each launched on
+    its own stream of the genome's card (:func:`spans_together_ms`)."""
+    return spans_together_ms(torch, [
+        (genome.device, lambda s0=s0, n=n: dp_cuda.screen_dual(genome, qvals, **dict(
+            kw, base0=kw["base0"] + s0 * kw["step"], n_windows=n)))
+        for _e, s0, n in gs.mesh_spans(k, 0, kw["n_windows"])])
 
 
 def mesh_and_distributed(torch, np, dp_cuda, dp_screen, gs, scorer, device,
@@ -2497,6 +2518,139 @@ def span_timing(torch, np, dp_cuda, gs, scorer, device, raw, dqs) -> None:
         log(f"[mesh] dual kernel at {shape}'s grid ({n_w} windows) on 1/2/4 streams of "
             f"{device}: " + ", ".join(f"{k} span(s) {t:.4f} ms" for k, t in sorted(times.items()))
             + " (each the lesser of two means of 20)")
+
+
+ENTRY_SHAPE = (41_238, 1000)  # phase 9's shape (d): config 3's window count x window
+
+
+def entry_rows(np, seed: int = 17) -> tuple:
+    """Phase 17's batch at phase 9's shape (d), as host arrays: 41,238
+    random ACGT rows of 1000 bases, lengths uniform 0..1000, with config
+    3's protospacer planted at a random place in every 1,000th row (0-4
+    random bases redrawn, length 1000).  Returns ``(qmask, tmasks,
+    lengths)``."""
+    from calitas_tpu_torch.core.sequence import encode_query
+
+    rng = np.random.default_rng(seed)
+    B, T = ENTRY_SHAPE
+    acgt = np.array([1, 2, 4, 8], np.uint8)
+    tmasks = acgt[rng.integers(0, 4, (B, T), dtype=np.uint8)]
+    lengths = rng.integers(0, T + 1, B).astype(np.int32)
+    qmask = encode_query(GUIDE[:20])
+    for r in range(0, B, 1000):
+        site = qmask.copy()
+        site[rng.integers(0, 20, r // 1000 % 5)] = acgt[rng.integers(0, 4)]
+        pos = int(rng.integers(0, T - 20))
+        tmasks[r, pos : pos + 20] = site
+        lengths[r] = T
+    return qmask, tmasks, lengths
+
+
+def entry_points(torch, np, dp_cuda, dp_screen, gs, scorer, device, tmp: Path,
+                 rows_d_ms: float | None = None) -> dict:
+    """Phase 17: the port's entry points (``calitas_tpu_torch/graft_entry.py``)
+    and mesh batch screen on the card: ``entry()``'s step against the
+    plain version; ``screen_on_mesh`` at phase 9's shape (d) on 1, 2 and 4
+    spans of this card (and over every visible card when there are
+    several) against the plain version, with its wall and each span's
+    kernel time (graph-timed), printed beside ``rows_d_ms`` (phase 9's
+    (d)) when given; ``dryrun_multichip(2)`` and ``(4)`` as spans of this
+    card (and over every visible card).  Each driven run starts with the
+    counts at 0; returns their launches by kernel, summed."""
+    from calitas_tpu_torch import graft_entry
+    from calitas_tpu_torch.ops import probes
+    from calitas_tpu_torch.parallel.mesh import make_mesh, screen_on_mesh
+
+    sk = dict(match=scorer.match_score, mismatch=scorer.mismatch_score,
+              qgap=scorer.query_gap_score, tgap=scorer.target_gap_score)
+    total_launches = collections.Counter()
+
+    def driven(what: str, fn):
+        """``fn()`` with the counts at 0 just before it, read just after;
+        no plain version may run on the card."""
+        dp_cuda.reset_launches()
+        dp_screen.reference_calls["cuda"] = 0
+        out = fn()
+        launches = dict(dp_cuda.launches)
+        if dp_screen.reference_calls["cuda"]:
+            raise AssertionError(f"{what}: a plain version ran on the card")
+        total_launches.update(launches)
+        return out, launches
+
+    # entry(): the single-device step on the card against the plain version
+    fn, args = graft_entry.entry()
+    got, launches = driven("entry()", lambda: fn(*args))
+    want = dp_screen._screen_scores(*args, **sk)
+    if args[1].device != device or not torch.equal(got, want) or launches["screen_rows"] != 1:
+        raise AssertionError(f"entry(): on {args[1].device}, equal "
+                             f"{torch.equal(got, want)}, launches {launches}")
+    log(f"[entry] entry() on {device}: {tuple(got.shape)} {got.dtype} best scores == plain "
+        f"version (max_abs_err 0); screen_rows launches {launches['screen_rows']}")
+
+    # screen_on_mesh at phase 9's shape (d), config 3's guide and min score
+    qmask, tmasks, lengths = entry_rows(np)
+    B, T = tmasks.shape
+    ms = 60 * 20 - 5 * 122
+    on_card = [torch.from_numpy(a).to(device) for a in (qmask, tmasks, lengths)]
+    want = dp_screen._screen_scores(*on_card, **sk).cpu().numpy()
+    want_total = int((want >= ms).sum())
+    del on_card
+    n_cards = torch.cuda.device_count()
+    meshes = [(device,) * k for k in (1, 2, 4)] + ([make_mesh()] if n_cards > 1 else [])
+    for mesh in meshes:
+        k = len(mesh)
+        spans = gs.mesh_spans(k, 0, B + (-B) % k)
+        walls = []
+        for _ in range(2):  # the first run also allocates the pinned upload buffers
+            t0 = time.perf_counter()
+            (best, total), launches = driven(f"screen_on_mesh over {k}", lambda: screen_on_mesh(
+                mesh, scorer, qmask, tmasks, lengths, ms))
+            walls.append(time.perf_counter() - t0)
+            if not np.array_equal(best, want) or total != want_total \
+                    or launches["screen_rows"] != len(spans):
+                raise AssertionError(f"screen_on_mesh over {mesh}: equal "
+                                     f"{np.array_equal(best, want)}, total {total} of "
+                                     f"{want_total}, launches {launches}")
+        span_ms, prepared = {}, []
+        for e, r0, n in spans:
+            with torch.cuda.device(mesh[e]):
+                tm = torch.from_numpy(tmasks[r0 : r0 + n]).to(mesh[e])
+                ln = torch.from_numpy(lengths[r0 : r0 + n]).to(mesh[e])
+
+                def make(tm=tm, ln=ln):
+                    return dp_cuda._screen_rows_launcher(qmask[None], tm, ln, **sk)
+
+                span_ms[e] = launcher_times(probes, {e: make})[e]
+                prepared.append((mesh[e], make()[0]))
+        log(f"[entry] screen_on_mesh, {B:,} x {T} rows, Q 20, min score {ms}, over {k} "
+            f"span(s) on {sorted({str(d) for d in mesh})}: best == plain version "
+            f"(max_abs_err 0), total {total} == plain's {want_total}; screen_rows launches "
+            f"{launches['screen_rows']} per run; wall {walls[0]:.4f} s, then {walls[1]:.4f} s "
+            f"(upload, launches, readback); "
+            f"each span's kernel alone " + ", ".join(
+                f"{n:,} rows L={dp_cuda.screen_rows_default_lanes(20, n, False)} "
+                f"{span_ms[e]:.5f} ms" for e, _r0, n in spans)
+            + f"; all spans on their streams {spans_together_ms(torch, prepared):.5f} ms"
+            + (f"; phase 9's (d) {rows_d_ms:.5f} ms" if rows_d_ms is not None else ""))
+
+    # dryrun_multichip: spans of this card, and every visible card
+    runs = [(n, [device] * n) for n in (2, 4)] + ([(n_cards, None)] if n_cards > 1 else [])
+    hashes = set()
+    for n, devices in runs:
+        t0 = time.perf_counter()
+        summary, launches = driven(f"dryrun_multichip({n})", lambda: graft_entry.dryrun_multichip(
+            n, devices=devices))
+        hashes.add(summary["hash"])
+        log(f"[entry] dryrun_multichip({n}) on "
+            f"{'every visible card' if devices is None else f'{n} spans of {device}'}: "
+            f"passed in {time.perf_counter() - t0:.3f} s; flags {summary['flags']}, global hits "
+            f"{summary['global_hits']}, table rows {summary['rows']} hash {summary['hash']}; "
+            f"launches {launches}")
+        if not all(launches[k] for k in ("screen_dual", "screen_multi", "screen_rows")):
+            raise AssertionError(f"dryrun_multichip({n}) skipped a kernel: {launches}")
+    if len(hashes) != 1:
+        raise AssertionError(f"dryrun_multichip's tables differ across meshes: {hashes}")
+    return {k: total_launches[k] for k in ("screen_dual", "screen_multi", "screen_rows")}
 
 
 def own_processes() -> list:
@@ -2743,6 +2897,17 @@ def main() -> int:
             multi_launches += mesh_launches["screen_multi"]
             phase_s["16 mesh and distributed"] = time.perf_counter() - t0
             no_degradation(utils, "16 mesh and distributed")
+
+            # 17. The entry points and the mesh batch screen
+            t0 = time.perf_counter()
+            d_row = row_shape_rows[ROW_ENTRY]
+            entry_launches = entry_points(torch, np, dp_cuda, dp_screen, gs, scorer, device,
+                                          tmp, rows_d_ms=d_row[d_row["launcher"]])
+            dual_launches += entry_launches["screen_dual"]
+            multi_launches += entry_launches["screen_multi"]
+            rows_launches += entry_launches["screen_rows"]
+            phase_s["17 entry points"] = time.perf_counter() - t0
+            no_degradation(utils, "17 entry points")
     finally:
         stop_processes(host_pool)
 
@@ -2814,10 +2979,11 @@ def main() -> int:
 
 
 def phases_alone(names: list) -> int:
-    """``python3 chip_smoke.py --only 15 16``: the build, then the named
-    phases of 15 (faults) and 16 (mesh and ``--distributed``) alone, with
-    their checks; phase 16 also splits over every visible card when there
-    are several (``chiprun --chips 4``).  Prints no kernels line."""
+    """``python3 chip_smoke.py --only 15 16 17``: the build, then the named
+    phases of 15 (faults), 16 (mesh and ``--distributed``) and 17 (entry
+    points) alone, with their checks; phases 16 and 17 also split over every
+    visible card when there are several (four cards).  Prints
+    no kernels line."""
     import numpy as np
     import torch
 
@@ -2838,7 +3004,7 @@ def phases_alone(names: list) -> int:
     t0 = time.perf_counter()
     dp_cuda.build_all(tuple(dp_cuda.SOURCES))
     log(f"[build] {time.perf_counter() - t0:.1f} s")
-    phases = {"15": faults_on_the_card, "16": mesh_and_distributed}
+    phases = {"15": faults_on_the_card, "16": mesh_and_distributed, "17": entry_points}
     try:
         with tempfile.TemporaryDirectory() as tmp:
             for name in names:
@@ -2846,7 +3012,7 @@ def phases_alone(names: list) -> int:
                 utils.reset_degraded()
                 phases[name](torch, np, dp_cuda, dp_screen, gs, derive_scorer(), device,
                              Path(tmp))
-                if name == "16":
+                if name != "15":
                     no_degradation(utils, name)
                 log(f"[phase {name}] passed in {time.perf_counter() - t0:.1f} s")
     finally:

@@ -127,3 +127,28 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.startswith("OK")
+
+
+ENTRY_SCRIPT = textwrap.dedent(
+    r"""
+    import sys
+    sys.modules["jax"] = None
+    sys.modules["calitas_tpu"] = None
+    sys.modules["__graft_entry__"] = None  # the JAX package's entry points
+    from calitas_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry(device="cpu")
+    best = fn(*args)
+    assert tuple(best.shape) == (64,) and str(best.dtype) == "torch.int32", best
+    summary = graft_entry.dryrun_multichip(2, devices=["cpu"] * 2)
+    assert summary["rows"] >= 50, summary["rows"]
+    assert not [m for m in sys.modules if m.startswith(("jax.", "jaxlib", "calitas_tpu."))]
+    """
+)
+
+
+def test_graft_entry_runs_without_jax():
+    proc = subprocess.run([sys.executable, "-c", ENTRY_SCRIPT], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "dryrun_multichip OK: mesh=2 devices" in proc.stdout

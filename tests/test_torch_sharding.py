@@ -6,8 +6,9 @@ window) give flags and ranges bit-identical to the port's one-device
 8-device CPU mesh of tests/conftest.py; ``run(mesh=)`` tables equal those
 without a mesh.  Gated screens are held against JAX's Pallas path in
 interpret mode, never the XLA path, which applies no PAM gate.  Mirrors
-tests/test_sharding.py but for ``screen_on_mesh`` and the nibble-packed
-staging, which are not ported."""
+tests/test_sharding.py but for ``screen_on_mesh`` (held against the JAX
+function in tests/test_torch_graft_entry.py) and the nibble-packed
+staging, which is not ported."""
 
 from __future__ import annotations
 
