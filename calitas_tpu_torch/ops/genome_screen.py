@@ -57,6 +57,12 @@ def range_block(window: int) -> int:
     return rb
 
 
+def staged_length(n: int, window: int) -> int:
+    """Length of a staged n-base contig: the power of two that holds every
+    window of ``window`` bases starting in the contig."""
+    return 1 << (n + window - 1).bit_length()
+
+
 def from_numpy_staged(arr: np.ndarray, device) -> torch.Tensor:
     """A staged (or annotated) genome from the JAX package (``np.asarray``
     of its device array) as this package's 1-D uint8 tensor."""
@@ -206,9 +212,8 @@ class GenomeScreen:
         """Upload a contig's raw bytes as a zero-padded mask array: one
         H2D copy from pinned memory, then the IUPAC encode on device."""
         n = len(contig_bases)
-        padded_len = 1 << (n + self.window - 1).bit_length()
         host = torch.zeros(
-            padded_len, dtype=torch.uint8,
+            staged_length(n, self.window), dtype=torch.uint8,
             pin_memory=self.device.type == "cuda",
         )
         host.numpy()[:n] = contig_bases

@@ -190,6 +190,21 @@ Phases, each raising on failure:
    ``dryrun_multichip(2)`` and ``(4)`` as spans of this card (and
    ``dryrun_multichip`` over every visible card) must pass, launch all
    three screens and give one table.
+18. The port's bench at 1 Gb (``calitas_tpu_torch/bench.py``, the
+   counterpart of the root ``bench.py``): its 1024 Mb hash genome written
+   as FASTA; the device generator must equal ``genome_codes`` over all
+   1,024,000,000 positions with a zero pad (one D2H copy); one
+   ``search_bench`` on this card (warm run, best of 3, screen alone, both
+   stagings, host baseline), on a finish pool of the bench's own 4
+   workers (the earlier phases' pool is shut down first), must find 75,328 raw and 74,649 kept hits,
+   launch ``screen_dual`` once per segment per run and no plain version,
+   and degrade nothing; its widest launch must equal the plain version
+   bit for bit (kernel and plain times, bound).  Prints the bench's JSON
+   line, its breakdown and the card.  The screen alone at 2 and 4 spans
+   of this card (``ShardedGenomeScreen``) must equal one span's flags and
+   ranges (best of 3 each, in turns); with several cards visible, the
+   bench through ``ShardedGenomeScreen(make_mesh())`` must give the
+   one-card table byte for byte, with its e2e and screen-alone times.
 
 After every phase but 15, ``utils.DEGRADED`` must read zero: no screen
 fell back to the host.  After the phases, passed or not, it stops every process it started and
@@ -201,13 +216,14 @@ launch counts are those of the main paths: phases 4 and 14's requests
 and phase 16's mesh goldens for the dual kernel, phases 6, 7 and 14's
 requests and phase 16's mesh goldens for the multi-guide kernel, the gpu
 runs of phases 10 and 11 for the row kernel, and for all three phase
-17's driven runs (``entry()``, ``screen_on_mesh``, the dry runs); phase
-13's roofline run for the probes; the row
+17's driven runs (``entry()``, ``screen_on_mesh``, the dry runs), and
+phase 18's bench runs for the dual kernel; phase 13's roofline run for
+the probes; the row
 kernel's times are those of the launcher's L at phase 9's shape (a), the
 list tools' per-row mode; each bound is that of the timed call's
 inputs); the last line is ``{"ok":
 true, "device": {...}}``.  Exits non-zero, without that line, when there
-is no CUDA device or the repository is missing.  ``--only 15 16 17``
+is no CUDA device or the repository is missing.  ``--only 15 16 17 18``
 runs the build and those phases alone (see :func:`phases_alone`).
 """
 
@@ -2653,6 +2669,169 @@ def entry_points(torch, np, dp_cuda, dp_screen, gs, scorer, device, tmp: Path,
     return {k: total_launches[k] for k in ("screen_dual", "screen_multi", "screen_rows")}
 
 
+BENCH_G = 1_024_000_000  # the bench's default genome: 1024 Mb
+BENCH_RAW, BENCH_KEPT = 75_328, 74_649  # its raw and kept hits (the JAX bench's counts)
+
+
+def bench_at_1gb(torch, np, dp_cuda, dp_screen, gs, scorer, device, tmp: Path,
+                 peak: float | None = None) -> tuple:
+    """Phase 18: the port's bench (``calitas_tpu_torch/bench.py``) at 1024
+    Mb on this card.  The device generator must equal ``genome_codes``
+    over the whole genome with a zero pad (one D2H copy); the run must
+    find 75,328 raw and 74,649 kept hits, launch ``screen_dual`` once per
+    segment per run and no plain version, and degrade nothing; its widest
+    launch must equal the plain version.  The screen alone at 2 and 4
+    spans of this card must equal one span's flags and ranges; with
+    several cards visible, the run over all of them must give the
+    one-card table byte for byte.  Prints the bench's JSON line and
+    breakdown, the widest launch's kernel and plain times (and bound, given
+    the int32 rate ``peak``), and the span and card times.  Returns the
+    driven runs' ``screen_dual`` launches and the comparison's
+    max_abs_err."""
+    from calitas_tpu_torch import bench
+    from calitas_tpu_torch.align.engine import SequentialAligner
+    from calitas_tpu_torch.core.guide import Guide
+    from calitas_tpu_torch.ops import probes
+    from calitas_tpu_torch.parallel import host_pool
+    from calitas_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    fasta, bases = bench.make_genome(str(tmp), BENCH_G)
+    log(f"[bench] {BENCH_G:,}-base genome, FASTA and .fai written in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    # The device generator against the host stream, over every position.
+    t0 = time.perf_counter()
+    padded = gs.staged_length(BENCH_G, bench.WINDOW)
+    host = bench.device_genome_masks(padded, BENCH_G, device).cpu().numpy()
+    lut = np.zeros(256, dtype=np.uint8)
+    lut[np.frombuffer(b"ACGT", dtype=np.uint8)] = (1, 2, 4, 8)
+    chunk = 1 << 26
+    same = all(np.array_equal(host[o : min(o + chunk, BENCH_G)], lut[bases[o : o + chunk]])
+               for o in range(0, BENCH_G, chunk))
+    pad_zero = not host[BENCH_G:].any()
+    log(f"[bench] device generator over {padded:,} positions == genome_codes: {same}; "
+        f"pad of {padded - BENCH_G:,} zero: {pad_zero} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    if not (same and pad_zero):
+        raise AssertionError("the device genome differs from the host stream")
+    del host, bases
+
+    # The bench's own process starts with no finish pool: the larger pool
+    # of the earlier phases (it only grows) would run its finish on 8
+    # workers, not the bench's 4.
+    if host_pool._SHARED_POOL is not None:
+        host_pool._SHARED_POOL.shutdown(wait=True)
+        host_pool._SHARED_POOL = None
+
+    # The bench, driven with the counts at 0; the widest launch's inputs kept.
+    widest = {}
+    wrapper = dp_cuda.screen_dual
+
+    def recording(genome, qvals, **kw):
+        if not widest or kw["n_windows"] > widest["kw"]["n_windows"]:
+            widest.update(numel=genome.numel(), qvals=qvals.copy(), kw=dict(kw))
+        return wrapper(genome, qvals, **kw)
+
+    dp_cuda.screen_dual = recording
+    try:
+        dp_cuda.reset_launches()
+        dp_screen.reference_calls["cuda"] = 0
+        res = bench.search_bench(fasta, BENCH_G, device=device)
+        launches = dp_cuda.launches["screen_dual"]
+        plain = dp_screen.reference_calls["cuda"]
+    finally:
+        dp_cuda.screen_dual = wrapper
+    log(json.dumps(bench.metric_line(res)))
+    log(bench.breakdown(res))
+    log(f"# card: {bench.card_names()}")
+    runs = len(res["e2e_runs"]) + 1  # the warm run too
+    log(f"[bench] raw {res['raw_hits']} kept {res['kept']}; screen_dual launches "
+        f"{res['launches']} per run, {launches} in all ({runs} runs and the screen alone "
+        f"over {res['segments']} segments); plain version on the card {plain}")
+    if (res["raw_hits"], res["kept"]) != (BENCH_RAW, BENCH_KEPT):
+        raise AssertionError(f"bench hits {res['raw_hits']}/{res['kept']}, want "
+                             f"{BENCH_RAW}/{BENCH_KEPT}")
+    if res["launches"] != res["segments"] or launches != (runs + 1) * res["segments"] or plain:
+        raise AssertionError(f"bench launches {res['launches']} per run, {launches} in all, "
+                             f"segments {res['segments']}, plain {plain}")
+
+    # The widest launch against the plain version, on the same inputs.
+    guide = Guide.parse(bench.GUIDE)
+    masks = bench.device_genome_masks(padded, BENCH_G, device)
+    genome = gs.annotate_genome_pam(masks, gs.encode_pam_spec(bench.pam_spec(guide)))
+    qvals, kw = widest["qvals"], widest["kw"]
+    if genome.numel() != widest["numel"]:
+        raise AssertionError(f"widest launch on {widest['numel']} bytes, not {genome.numel()}")
+    got = dp_cuda.screen_dual(genome, qvals, **kw)
+    want = dp_screen.screen_dual_reference(genome, qvals, **kw)
+    torch.cuda.synchronize()
+    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+              for a, b in zip(got, want))
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("screen_dual != plain at the bench's widest launch")
+    kernel_ms = cuda_time_ms(torch, lambda: dp_cuda.screen_dual(genome, qvals, **kw), 20)
+    plain_ms = cuda_time_ms(torch, lambda: dp_screen.screen_dual_reference(
+        genome, qvals, **kw), 1)
+    bound = ""
+    if peak is not None:
+        b_ms, b_by = probes.bound_ms(*probes.grid_work(
+            genome.numel(), kw["base0"], kw["step"], kw["n_windows"], kw["window"],
+            qvals.shape[-1]), peak)
+        bound = f"; bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / kernel_ms:.2f} % of the bound"
+    log(f"[bench] widest launch (base0 {kw['base0']}, {kw['n_windows']} windows, genome "
+        f"{genome.numel():,} bytes, L={dp_cuda.screen_dual_default_lanes(qvals.shape[-1])}): "
+        f"== plain, max_abs_err {err}; kernel {kernel_ms:.4f} ms, plain {plain_ms:.2f} ms{bound}")
+    del genome, got, want
+
+    # The screen alone at 1, 2 and 4 spans of this card, in turns.
+    ms = SequentialAligner().min_guide_score(guide, bench.ALIGN_KWARGS["max_guide_diffs"])
+    screens = {n: gs.GenomeScreen(scorer, device, window=bench.WINDOW) if n == 1 else
+               gs.ShardedGenomeScreen(scorer, (device,) * n, window=bench.WINDOW)
+               for n in (1, 2, 4)}
+    segments = screens[1].segment_spans(len(screens[1].window_starts(BENCH_G, bench.STEP)))
+
+    def span_launches(n: int) -> int:
+        """One launch per span of every segment, split over n mesh entries."""
+        return sum(len(gs.mesh_spans(n, i0, k)) for i0, k in segments)
+
+    best = {n: float("inf") for n in screens}
+    one = None
+    for _ in range(3):
+        for n, screen in screens.items():
+            dp_cuda.reset_launches()
+            secs, flags, ranges = bench.screen_only(screen, masks, BENCH_G, guide, ms)
+            best[n] = min(best[n], secs)
+            if dp_cuda.launches["screen_dual"] != span_launches(n):
+                raise AssertionError(f"{n} spans: {dp_cuda.launches['screen_dual']} launches")
+            if one is None:
+                one = (flags, ranges)
+            elif not (np.array_equal(flags, one[0]) and np.array_equal(ranges, one[1])):
+                raise AssertionError(f"the screen at {n} spans differs from one span's")
+    log("[bench] screen alone (annotate + launches + readbacks), best of 3, flags and ranges "
+        "equal to one span's: " + ", ".join(
+            f"{n} span{'s' * (n > 1)} {best[n]:.6f} s" for n in best))
+    del masks, screens
+
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        dp_cuda.reset_launches()
+        dp_screen.reference_calls["cuda"] = 0
+        res_k = bench.search_bench(fasta, BENCH_G, mesh=make_mesh())
+        mesh_launches = dp_cuda.launches["screen_dual"]
+        launches += mesh_launches
+        log(f"[bench] over {n_cards} cards: " + bench.breakdown(res_k))
+        if res_k["body"] != res["body"] or dp_screen.reference_calls["cuda"]:
+            raise AssertionError(f"the table over {n_cards} cards differs from one card's")
+        if res_k["launches"] != span_launches(n_cards):
+            raise AssertionError(f"{n_cards} cards: {res_k['launches']} launches per run")
+        log(f"[bench] {n_cards} cards: table == one card's ({res_k['kept']} rows); e2e best "
+            f"{res_k['e2e_best']:.6f} s against {res['e2e_best']:.6f} s, screen alone "
+            f"{res_k['screen']:.6f} s against {res['screen']:.6f} s")
+    os.remove(fasta)
+    return launches, err
+
+
 def own_processes() -> list:
     """(pid, state, command line) of every process descended from this
     one, read from /proc."""
@@ -2908,6 +3087,15 @@ def main() -> int:
             rows_launches += entry_launches["screen_rows"]
             phase_s["17 entry points"] = time.perf_counter() - t0
             no_degradation(utils, "17 entry points")
+
+            # 18. The port's bench at 1 Gb
+            t0 = time.perf_counter()
+            bench_launches, bench_err = bench_at_1gb(torch, np, dp_cuda, dp_screen, gs, scorer,
+                                                     device, tmp, peak=roof["bound_ops_per_s"])
+            dual_launches += bench_launches
+            max_err = max(max_err, bench_err)
+            phase_s["18 bench at 1 Gb"] = time.perf_counter() - t0
+            no_degradation(utils, "18 bench at 1 Gb")
     finally:
         stop_processes(host_pool)
 
@@ -2979,11 +3167,11 @@ def main() -> int:
 
 
 def phases_alone(names: list) -> int:
-    """``python3 chip_smoke.py --only 15 16 17``: the build, then the named
-    phases of 15 (faults), 16 (mesh and ``--distributed``) and 17 (entry
-    points) alone, with their checks; phases 16 and 17 also split over every
-    visible card when there are several (four cards).  Prints
-    no kernels line."""
+    """``python3 chip_smoke.py --only 15 16 17 18``: the build, then the
+    named phases of 15 (faults), 16 (mesh and ``--distributed``), 17 (entry
+    points) and 18 (the bench at 1 Gb) alone, with their checks; phases 16,
+    17 and 18 also split over every visible card when there are several
+    (four cards).  Prints no kernels line."""
     import numpy as np
     import torch
 
@@ -3004,7 +3192,8 @@ def phases_alone(names: list) -> int:
     t0 = time.perf_counter()
     dp_cuda.build_all(tuple(dp_cuda.SOURCES))
     log(f"[build] {time.perf_counter() - t0:.1f} s")
-    phases = {"15": faults_on_the_card, "16": mesh_and_distributed, "17": entry_points}
+    phases = {"15": faults_on_the_card, "16": mesh_and_distributed, "17": entry_points,
+              "18": bench_at_1gb}
     try:
         with tempfile.TemporaryDirectory() as tmp:
             for name in names:

@@ -9,6 +9,7 @@ engine's table, with the pair screen's pass bounds reaching the
 fallback in both best modes.  No jax module and no module of the JAX package may ever
 be loaded."""
 
+import json
 import subprocess
 import sys
 import textwrap
@@ -152,3 +153,26 @@ def test_graft_entry_runs_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "dryrun_multichip OK: mesh=2 devices" in proc.stdout
+
+
+BENCH_SCRIPT = textwrap.dedent(
+    r"""
+    import json
+    import sys
+    sys.modules["jax"] = None
+    sys.modules["calitas_tpu"] = None
+    sys.modules["bench"] = None  # the JAX package's bench
+    from calitas_tpu_torch import bench
+
+    assert bench.main(["0.2", "--device", "cpu"]) == 0
+    assert not [m for m in sys.modules if m.startswith(("jax.", "jaxlib", "calitas_tpu."))]
+    """
+)
+
+
+def test_bench_runs_without_jax():
+    proc = subprocess.run([sys.executable, "-c", BENCH_SCRIPT], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert set(line) == {"metric", "value", "unit", "vs_baseline"}
