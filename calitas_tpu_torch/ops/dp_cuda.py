@@ -755,8 +755,9 @@ def _screen_rows_launcher(qmasks, tmasks: torch.Tensor, lengths: torch.Tensor,
 class CudaScreenKernel(ScreenKernel):
     """The counterpart of ``calitas_tpu/ops/dp_pallas2.py::
     PallasScreenKernelV2``: the :class:`ScreenKernel` API with the maxima
-    computed by :func:`screen_rows` in shared-query mode (the CUDA kernel
-    on a CUDA device, its plain version on the CPU)."""
+    computed by :func:`screen_rows` in shared-query mode: the CUDA kernel
+    on the card (the default device, which raises where torch sees none),
+    its plain version when asked for ``"cpu"``."""
 
     @staticmethod
     def supports(q_len: int) -> bool:

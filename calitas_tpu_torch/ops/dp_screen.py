@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from calitas_tpu_torch.core.scoring import Scorer
+from calitas_tpu_torch.device import resolve_device
 
 NEG_INF = -(2**30)
 #: gate sentinel for PAM-less chain-B starts: far below any reachable DP
@@ -290,14 +291,16 @@ def screen_multi_reference(
 
 class ScreenKernel:
     """The library API of ``calitas_tpu/ops/dp_screen.py::ScreenKernel``
-    on an explicit ``torch.device``: final-row screens of one query
-    against a batch of length-masked target rows, in plain PyTorch.
+    on a ``torch.device``: final-row screens of one query against a batch
+    of length-masked target rows, in plain PyTorch.
     ``ops/dp_cuda.py::CudaScreenKernel`` runs the same API through the
-    CUDA row screen."""
+    CUDA row screen.  ``device`` defaults to ``cuda`` and raises where
+    torch sees no card (``device.py::resolve_device``); ``"cpu"`` runs on
+    the CPU."""
 
-    def __init__(self, scorer: Scorer, device="cpu"):
+    def __init__(self, scorer: Scorer, device=None):
         self.scorer = scorer
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def _scores(self) -> dict:
         s = self.scorer

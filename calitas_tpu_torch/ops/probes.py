@@ -267,7 +267,9 @@ def roofline(device, *, reps: int = 20, seed: int = 0) -> dict:
     operations or bytes set it) and share of its bound.  The int32 rate
     of the bounds is ``bound_ops_per_s``: the larger of the white-paper
     rate (``peak_int32_ops_per_s``) and the peak probe's on a
-    card-filling shape (``peak_probe_ops_per_s``).
+    card-filling shape (``peak_probe_ops_per_s``).  ``ceiling_cells_per_s``
+    is the ceiling probe's DP cells per second at each of its shapes, and
+    each screen's row carries its share of it (:func:`ceiling_shares`).
 
     Probe shapes: T 1024, Q 20 at N 32,768 (``screen_ab.py``'s) and at N
     = SMs x 2048 (every SM full).  Screen shapes: config3's grid (41,238
@@ -306,6 +308,11 @@ def roofline(device, *, reps: int = 20, seed: int = 0) -> dict:
     peak = out["bound_ops_per_s"] = max(peak, peak_probe_rate)
     for (name, N), ms in probe_ms.items():
         out["probes"][f"{name} N={N}"] = _row(ms, probe_work(name, T, N, Q), peak)
+    # The ceiling's DP cells per second (one chain per lane), each screen's
+    # share of it below.
+    ceiling_cells = out["ceiling_cells_per_s"] = {
+        N: 1e3 * Q * T * N / ms for (name, N), ms in probe_ms.items()
+        if name == "ceiling_probe"}
 
     scorer = derive_scorer()
     sk = dict(match=scorer.match_score, mismatch=scorer.mismatch_score,
@@ -357,4 +364,24 @@ def roofline(device, *, reps: int = 20, seed: int = 0) -> dict:
     launch, _out = dp_cuda._screen_rows_launcher(qd, tm, ln, ms_rows, **sk)
     out["kernels"]["screen_rows per-row"] = _row(
         graph_times_ms({0: launch})[0], rows_work(lens, Q, 2, True, True), peak)
+    chains = {"screen_dual": 2, "screen_multi G=4": 8, "screen_multi slots G=1": 2,
+              "screen_rows shared": 1, "screen_rows per-row": 2}
+    for name, r in out["kernels"].items():
+        r.update(ceiling_shares(r, chains[name], ceiling_cells))
     return out
+
+
+def ceiling_shares(row: dict, chains: int, ceiling_cells: dict) -> dict:
+    """A screen's rate against the ceiling probe's: ``cells_per_s`` (every
+    chain's DP cells: 2 ops each), ``chains`` (the DP chains of each
+    window or row of the launch, every guide's), ``cells_per_s_per_chain``,
+    and for each ceiling shape N the share of the ceiling's cells per
+    second (``share_of_ceiling``, all chains: the screen's share of its
+    bound over the ceiling's, when operations bound both) and of one chain
+    (``share_of_ceiling_per_chain``, as ``benchmarks/screen_ab.py`` holds
+    the production kernel against its chain probe)."""
+    cells = row["ops_per_s"] / 2
+    return {"cells_per_s": cells, "chains": chains, "cells_per_s_per_chain": cells / chains,
+            "share_of_ceiling": {N: cells / c for N, c in ceiling_cells.items()},
+            "share_of_ceiling_per_chain": {N: cells / chains / c
+                                           for N, c in ceiling_cells.items()}}

@@ -113,12 +113,16 @@ Phases, each raising on failure:
 13. Roofline probes: the Q 20 probes' SASS must hold at least one max
    instruction per add+max pair of a column (nothing folded); each probe
    (``csrc/probes.cu``) must equal its plain
-   PyTorch version bit for bit at a small shape and at
-   benchmarks/screen_ab.py's (T 1024, N 32,768, Q 20); times both there;
-   then ``ops/probes.py::roofline`` times both probes there and on a
+   PyTorch version bit for bit at a small shape, at
+   benchmarks/screen_ab.py's (T 1024, N 32,768, Q 20), at N 1 and at the
+   ceiling wavefront's edges (T < Q, T = Q, T = Q + 1, T = 1, Q = 1, Q =
+   48, bias below 0) at N 32,768 and 32,771; times both at screen_ab.py's
+   shape; then ``ops/probes.py::roofline`` times both probes there and on a
    card-filling shape (N = SMs x 2048) and the three screen kernels at
    their main-path shapes (the multi-guide kernel also at a variant slot
-   batch, B 8192 x T 64, G 1), and prints each one's bound and share.
+   batch, B 8192 x T 64, G 1), and prints each one's bound and share, and
+   each screen's DP cells per second (all chains and per chain) as a
+   share of the ceiling probe's at both of its shapes.
 14. Resident serving at 1 Gb: six seeded contigs at GRCh38's lengths of
    chr1-chr5 and chrM (1,061,214,893 bases, a cut of
    benchmarks/serve_bench.py's 3.1 Gb / 8-contig genome) with planted
@@ -223,8 +227,8 @@ kernel's times are those of the launcher's L at phase 9's shape (a), the
 list tools' per-row mode; each bound is that of the timed call's
 inputs); the last line is ``{"ok":
 true, "device": {...}}``.  Exits non-zero, without that line, when there
-is no CUDA device or the repository is missing.  ``--only 15 16 17 18``
-runs the build and those phases alone (see :func:`phases_alone`).
+is no CUDA device or the repository is missing.  ``--only 13 15 16 17
+18`` runs the build and those phases alone (see :func:`phases_alone`).
 """
 
 from __future__ import annotations
@@ -1613,16 +1617,26 @@ def long_guide(torch, dp_cuda, dp_screen, tmp: Path) -> None:
         raise AssertionError("the 50-base guide did not run on the plain route alone")
 
 
+#: the ceiling's wavefront edges (T, Q, bias): T < Q, T = Q, T = Q + 1,
+#: T = 1, Q = 1, Q = 48, bias below 0; phase 13 runs each at N 32,768 and
+#: at a ragged N (not a multiple of the 64-thread block)
+PROBE_EDGES = ((5, 20, -7), (20, 20, 3), (21, 20, -1), (1, 20, 0), (1, 1, -5), (7, 1, 11),
+               (100, 48, 11), (37, 48, -9))
+
+
 def probes_vs_plain(torch, np, dp_cuda, probes, device):
     """Phase 13, first half: each probe against its plain version, bit
-    for bit, at a small shape and at screen_ab.py's (T 1024, N 32,768,
-    Q 20), with screen_ab.py's column values (masks 1-15 with both PAM
-    bits set); returns (max_abs_err, {name: (kernel ms, plain ms)}) at
-    screen_ab.py's shape."""
+    for bit, at a small shape, at screen_ab.py's (T 1024, N 32,768,
+    Q 20), at N 1 and at the ceiling's edge shapes (``PROBE_EDGES``) at N
+    32,768 and 32,771, with screen_ab.py's column values (masks 1-15 with
+    both PAM bits set); returns (max_abs_err, {name: (kernel ms, plain
+    ms)}) at screen_ab.py's shape."""
     rng = np.random.default_rng(13)
     max_err = 0
     times = {}
-    for T, N, Q, bias in ((16, 2048, 5, -3), (1024, 32_768, 20, 0)):
+    shapes = [(16, 2048, 5, -3), (1024, 32_768, 20, 0), (1024, 1, 20, -2)]
+    shapes += [(T, N, Q, bias) for T, Q, bias in PROBE_EDGES for N in (32_768, 32_771)]
+    for T, N, Q, bias in shapes:
         tcols = torch.from_numpy(
             rng.integers(1, 16, (T, N)).astype(np.int32) | (3 << 4)).to(device)
         for name in ("ceiling_probe", "peak_probe"):
@@ -1638,7 +1652,7 @@ def probes_vs_plain(torch, np, dp_cuda, probes, device):
             if not same:
                 raise AssertionError(f"{name} != plain at T={T} N={N} Q={Q}")
             max_err = max(max_err, err)
-            if N == 32_768:
+            if (T, N, Q) == (1024, 32_768, 20):
                 times[name] = (
                     cuda_time_ms(torch, lambda: kernel(tcols, Q, bias), 20),
                     cuda_time_ms(torch, lambda: plain(tcols, Q, bias), 1),
@@ -1693,9 +1707,30 @@ def roofline_run(dp_cuda, probes, device):
             log(f"[roofline] {what} {name}: {r['ms']:.4f} ms, {r['ops_per_s']:.6g} op/s, "
                 f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, share of bound "
                 f"{100 * r['share_of_bound']:.2f} %")
+    log("[roofline] ceiling probe: " + ", ".join(
+        f"{c:.6g} DP cells/s at N {N}" for N, c in roof["ceiling_cells_per_s"].items()))
+    for name, r in roof["kernels"].items():
+        log(f"[roofline] kernel {name} against the ceiling: {r['cells_per_s']:.6g} cells/s, "
+            f"{r['chains']} chains, {r['cells_per_s_per_chain']:.6g} per chain; share of the "
+            "ceiling's cell rate (all chains / per chain): " + ", ".join(
+                f"N {N} {100 * r['share_of_ceiling'][N]:.2f} / "
+                f"{100 * r['share_of_ceiling_per_chain'][N]:.2f} %"
+                for N in roof["ceiling_cells_per_s"]))
     if not all(launches.values()):
         raise AssertionError(f"roofline did not launch every probe: {launches}")
     return roof, launches
+
+
+def probes_and_roofline(torch, np, dp_cuda, dp_screen, gs, scorer, device, tmp: Path):
+    """Phase 13: the probes' SASS, each probe against its plain version,
+    then ``roofline``; returns (max_abs_err, {name: (kernel ms, plain
+    ms)}, the roofline, the probes' launches in it)."""
+    from calitas_tpu_torch.ops import probes
+
+    probe_sass(dp_cuda)
+    err, times = probes_vs_plain(torch, np, dp_cuda, probes, device)
+    roof, launches = roofline_run(dp_cuda, probes, device)
+    return err, times, roof, launches
 
 
 #: phase 14's genome: GRCh38's lengths of chr1-chr5 and chrM, a cut of
@@ -3046,9 +3081,8 @@ def main() -> int:
 
             # 13. The roofline probes and every kernel's bound
             t0 = time.perf_counter()
-            probe_sass(dp_cuda)
-            probe_err, probe_ms = probes_vs_plain(torch, np, dp_cuda, probes, device)
-            roof, probe_launches = roofline_run(dp_cuda, probes, device)
+            probe_err, probe_ms, roof, probe_launches = probes_and_roofline(
+                torch, np, dp_cuda, dp_screen, gs, scorer, device, tmp)
             phase_s["13 probes and roofline"] = time.perf_counter() - t0
             no_degradation(utils, "13 probes and roofline")
 
@@ -3167,11 +3201,12 @@ def main() -> int:
 
 
 def phases_alone(names: list) -> int:
-    """``python3 chip_smoke.py --only 15 16 17 18``: the build, then the
-    named phases of 15 (faults), 16 (mesh and ``--distributed``), 17 (entry
-    points) and 18 (the bench at 1 Gb) alone, with their checks; phases 16,
-    17 and 18 also split over every visible card when there are several
-    (four cards).  Prints no kernels line."""
+    """``python3 chip_smoke.py --only 13 15 16 17 18``: the build, then
+    the named phases of 13 (the probes and the roofline), 15 (faults), 16
+    (mesh and ``--distributed``), 17 (entry points) and 18 (the bench at 1
+    Gb) alone, with their checks; phases 16, 17 and 18 also split over
+    every visible card when there are several (four cards).  Prints no
+    kernels line."""
     import numpy as np
     import torch
 
@@ -3192,8 +3227,8 @@ def phases_alone(names: list) -> int:
     t0 = time.perf_counter()
     dp_cuda.build_all(tuple(dp_cuda.SOURCES))
     log(f"[build] {time.perf_counter() - t0:.1f} s")
-    phases = {"15": faults_on_the_card, "16": mesh_and_distributed, "17": entry_points,
-              "18": bench_at_1gb}
+    phases = {"13": probes_and_roofline, "15": faults_on_the_card, "16": mesh_and_distributed,
+              "17": entry_points, "18": bench_at_1gb}
     try:
         with tempfile.TemporaryDirectory() as tmp:
             for name in names:

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from calitas_tpu_torch.ops import dp_cuda, probes
+from calitas_tpu_torch.ops import dp_cuda, probe_ab, probes
 
 ROOT = Path(__file__).resolve().parent.parent
 CASES = [  # (T, Q, bias, blocks of 8 x 128 lanes)
@@ -107,9 +107,124 @@ def test_work_and_bounds():
     assert probes.bound_ms(1, 3.35e12, 1e13) == (1000.0, "bytes")
 
 
+def _kernel_ring() -> tuple[int, int]:
+    """``(kAhead, kRound)`` of ``csrc/probes.cu``: the ceiling kernel's
+    ring depth and steps per round."""
+    import re
+
+    src = (ROOT / "calitas_tpu_torch" / "csrc" / "probes.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+                 for name in ("kAhead", "kRound"))
+
+
+def _wavefront_model(tcols: np.ndarray, Q: int, bias: int, ahead: int, unroll: int,
+                     head: str) -> np.ndarray:
+    """The CUDA ceiling kernel's step order, in numpy, over all lanes at
+    once: one value per row, s[0..Q]; at step k row i works on column
+    k - i, the rows update in descending order (s[i] = max(s[i] + 1,
+    s[i-1]) for i = Q..1), then s[0] takes column k; ``best`` takes row Q
+    at steps Q..T+Q-1.  Column values come from a ring of ``ahead``
+    entries, each refilled ``ahead`` columns on, in rounds of ``unroll``
+    steps whose bounds are the kernel's three loops; a round the kernel
+    runs unguarded must need no guard.
+
+    ``head="ramp"`` is the kernel: row i starts at -i and moves in every
+    step, the rows past column T - 1 too.  ``head="guard"`` starts every
+    row at 0 and moves row i only while its column k - i lies in [0, T)."""
+    T, N = tcols.shape
+    s = np.zeros((Q + 1, N), np.int32)
+    if head == "ramp":
+        s[1:] = -np.arange(1, Q + 1, dtype=np.int32)[:, None]
+    ring = [tcols[u].copy() if u < T else np.zeros(N, np.int32) for u in range(ahead)]
+    best = np.full(N, -(2**30), np.int32)
+
+    def round_(k0: int, guarded: bool) -> None:
+        nonlocal best
+        for u in range(unroll):
+            k = k0 + u
+            if not guarded:
+                assert Q <= k < T + Q and k + ahead < T
+            for i in range(Q, 0, -1):
+                if head == "ramp" or 0 <= k - i < T:
+                    s[i] = np.maximum(s[i] + np.int32(1), s[i - 1])
+            if Q <= k < T + Q:
+                best = np.maximum(best, s[Q])
+            s[0] = ring[k % ahead] + np.int32(bias)
+            if k + ahead < T:
+                ring[k % ahead] = tcols[k + ahead].copy()
+
+    k = 0
+    while k < Q:
+        round_(k, True)
+        k += unroll
+    while k + unroll + ahead <= T:
+        round_(k, False)
+        k += unroll
+    while k < T + Q:
+        round_(k, True)
+        k += unroll
+    return best
+
+
+#: the ceiling's edge shapes (T, Q, bias, N): T < Q, T = Q, T = Q + 1,
+#: T = 1, Q = 1, Q = 48, N = 1, N not a multiple of the 64-thread block,
+#: bias below 0
+EDGE_SHAPES = [
+    (5, 20, -7, 64), (20, 20, 3, 65), (21, 20, -1, 130), (1, 20, 0, 64),
+    (1, 1, -5, 1), (7, 1, 11, 70), (100, 48, 11, 1), (37, 48, -9, 131),
+    (1024, 20, -2, 67), (50, 20, 0, 33),
+]
+
+
+@pytest.mark.parametrize("head", ["ramp", "guard"])
+@pytest.mark.parametrize("T,Q,bias,N", [
+    *EDGE_SHAPES,
+    (30, 20, 2**31 - 60, 5),  # tcol + bias wraps in int32, in both
+])
+def test_wavefront_order_equals_plain_ceiling(T, Q, bias, N, head):
+    """The skewed wavefront's order (the kernel's, and the one with every
+    row guarded outside its columns) gives the plain ceiling's result bit
+    for bit, at the kernel's ring and rounds and at shorter ones (more
+    guarded rounds against T and Q)."""
+    tcols = _tcols(T * 7 + Q + N, T, N)
+    want = probes.ceiling_probe_reference(torch.from_numpy(tcols), Q, bias).numpy()
+    for ahead, unroll in (_kernel_ring(), (16, 16), (4, 2), (1, 1)):
+        got = _wavefront_model(tcols, Q, bias, ahead, unroll, head)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_ceiling_shares():
+    # config3's dual grid at 0.41 ms against a ceiling of 1e13 cells/s at
+    # one N and 2e13 at another: 2 chains per window
+    ops, _ = probes.grid_work(40_000_000, 0, 973, 41_238, 1000, 20)
+    row = {"ops_per_s": 1e3 * ops / 0.41}
+    got = probes.ceiling_shares(row, 2, {32_768: 1e13, 270_336: 2e13})
+    cells = 2 * 20 * 41_238 * 1000 / 0.41e-3
+    assert got["cells_per_s"] == pytest.approx(cells)
+    assert got["cells_per_s_per_chain"] == pytest.approx(cells / 2)
+    assert got["share_of_ceiling"] == pytest.approx({32_768: cells / 1e13,
+                                                     270_336: cells / 2e13})
+    assert got["share_of_ceiling_per_chain"] == pytest.approx(
+        {32_768: cells / 2e13, 270_336: cells / 4e13})
+
+
 def test_roofline_needs_a_cuda_device():
     with pytest.raises(ValueError):
         probes.roofline("cpu")
+    with pytest.raises(ValueError):
+        probe_ab.compare([], "cpu")
+
+
+def test_probe_ab_reads_ptxas():
+    report = (
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114ceiling_kernelILi20EEEvPKiixiPi'"
+        " for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_114ceiling_kernelILi20EEEvPKiixiPi\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 56 registers, used 0 barriers, 8192 bytes smem\n"
+    )
+    assert probe_ab.ptxas_of(report) == {"registers": 56, "spill_bytes": 12}
+    assert probe_ab.ptxas_of(report, 48) == {"registers": None, "spill_bytes": None}
 
 
 @pytest.fixture()
@@ -122,6 +237,7 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,N,Q,bias", [
     (16, 2048, 5, 0), (7, 1000, 1, -3), (33, 4096, 48, 9), (1024, 32_768, 20, -1),
+    *((T, N, Q, bias) for T, Q, bias, N in EDGE_SHAPES),
 ])
 @pytest.mark.parametrize("name", ["ceiling_probe", "peak_probe"])
 def test_kernel_equals_plain_probe(cuda, name, T, N, Q, bias):

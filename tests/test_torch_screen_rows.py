@@ -64,6 +64,24 @@ def test_shared_query_matches_pallas_interpret_and_xla(seed):
     )
 
 
+@pytest.mark.parametrize(
+    "kernel_cls", [port_dp.ScreenKernel, dp_cuda.CudaScreenKernel]
+)
+def test_screen_kernel_defaults_to_the_card(kernel_cls, monkeypatch):
+    """``ScreenKernel(scorer)`` and ``CudaScreenKernel(scorer)`` resolve
+    to ``cuda``: without a card they raise, and they run on the CPU only
+    when asked for it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        kernel_cls(SCORER)
+    with pytest.raises(RuntimeError, match="is_available"):
+        kernel_cls(SCORER, "cuda")
+    assert kernel_cls(SCORER, "cpu").device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert kernel_cls(SCORER).device == torch.device("cuda", 0)
+
+
 def test_shared_query_ranges_match_xla():
     from calitas_tpu.ops import dp_screen as jax_dp
 
