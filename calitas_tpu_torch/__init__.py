@@ -22,6 +22,7 @@ The host half, copied from it (imports renamed; ``LazyCigar`` pickles,
   - parallel/multihost.py     whole-contig shards and their merge
   - tools/prepare_vcf.py      PrepareVcf
   - goldens.py                inputs of the golden configurations
+  - spans.py                  spans and counters of the port's own layers
 The device half:
   - device.py                 engine / --device resolution to a torch.device
   - ops/dp_screen.py          plain PyTorch DP screens (CPU path, plain route

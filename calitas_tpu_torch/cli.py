@@ -159,7 +159,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="Execution engine (auto: gpu when CUDA is available).")
     _add_device_arg(sr)
     sr.add_argument("--profile-dir", default=None,
-                    help="Write a torch.profiler trace of the run to this "
+                    help="Write a torch.profiler trace of the run, with the "
+                         "program's spans (calitas:<name>), to this "
                          "directory.")
     sr.add_argument("--checkpoint", default=None,
                     help="State file: each finished contig's hits are "

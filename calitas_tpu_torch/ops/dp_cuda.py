@@ -36,6 +36,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from calitas_tpu_torch import spans
 from calitas_tpu_torch.ops.dp_screen import (
     ScreenKernel,
     screen_dual_reference,
@@ -387,8 +388,10 @@ def readback(dev_out: tuple, finish):
     result.  The copies and the event go to the current stream of the
     tensors' device, so a launching thread's work stays in its order.  A
     kernel that faulted while it ran shows at the wait, and raises
-    :class:`KernelError`."""
+    :class:`KernelError`.  The results' bytes count in the ``d2h_bytes``
+    counter (``spans.py``)."""
     dev = dev_out[0].device
+    spans.count("d2h_bytes", sum(t.numel() * t.element_size() for t in dev_out))
     event = None
     if dev.type == "cuda":
         with torch.cuda.device(dev):

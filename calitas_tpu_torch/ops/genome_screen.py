@@ -31,6 +31,7 @@ import contextlib
 import numpy as np
 import torch
 
+from calitas_tpu_torch import spans
 from calitas_tpu_torch.core.scoring import Scorer
 from calitas_tpu_torch.core.sequence import IUPAC_MASK, encode_query
 from calitas_tpu_torch.ops import dp_cuda
@@ -270,7 +271,8 @@ class GenomeScreen:
         [(dp_query, dp_query_rc), ...], and whether the gate is on."""
         spec = encode_pam_spec(pam_spec)
         if spec is not None:
-            genome = annotate_genome_pam(genome, spec)
+            with spans.span("annotate"):
+                genome = annotate_genome_pam(genome, spec)
         qvals = np.stack(
             [np.stack([encode_query(q), encode_query(qrc)]) for q, qrc in dp_queries]
         ).astype(np.int32)
@@ -368,7 +370,8 @@ class GenomeScreen:
         """``resolve`` of windows [i0, i0 + n): ``launch(genome, i0, n)``'s
         device results, read back without blocking (``dp_cuda.readback``)
         as (chain flags [..., 2, n] bool, ranges [..., 2, n, 2] uint8)."""
-        return dp_cuda.readback(launch(genome, i0, n), _chain_result(n))
+        with spans.span("segment_launch"):
+            return dp_cuda.readback(launch(genome, i0, n), _chain_result(n))
 
     def _screen_span_multi(
         self, genome, qvals, min_scores, ms_dev, pam_gate, base0, n, step

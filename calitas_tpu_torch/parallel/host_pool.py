@@ -18,6 +18,8 @@ import logging
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable, Iterator, TypeVar
 
+from calitas_tpu_torch import spans
+
 W = TypeVar("W")
 R = TypeVar("R")
 
@@ -355,7 +357,9 @@ def map_items_mp(
             blk = list(itertools.islice(windows, chunk))
             if not blk:
                 return
-            results = worker_fn(spec, [to_payload(w) for w in blk])
+            with spans.span("finish"):
+                results = worker_fn(spec, [to_payload(w) for w in blk])
+            spans.count("finish_chunks_inline", 1)
             for w0, res in zip(blk, results):
                 yield w0, _unwrap(res, swallow_errors, logger)
 
@@ -412,25 +416,29 @@ def map_items_mp(
             _put(("__exc__", ex, None))
 
     def drain(ws, fut, payload):
-        if fut is not None:
-            from concurrent.futures import CancelledError
+        pooled = fut is not None
+        with spans.span("finish"):
+            if pooled:
+                from concurrent.futures import CancelledError
 
-            try:
-                results = fut.result()
-            except (BrokenProcessPool, CancelledError):
-                # Worker died (environment forbids subprocesses) or the
-                # shared pool was replaced under us (a concurrent caller
-                # grew it, cancelling our queued futures); recompute this
-                # chunk in-process and stop fanning out.
-                if not state["broken"] and logger is not None:
-                    logger.warning(
-                        "Worker pool broken; finishing in-process "
-                        "(single-threaded) from here on.", exc_info=True,
-                    )
-                state["broken"] = True
-                results = worker_fn(spec, [to_payload(w) for w in ws])
-        else:
-            results = worker_fn(spec, payload)
+                try:
+                    results = fut.result()
+                except (BrokenProcessPool, CancelledError):
+                    # Worker died (environment forbids subprocesses) or the
+                    # shared pool was replaced under us (a concurrent caller
+                    # grew it, cancelling our queued futures); recompute
+                    # this chunk in-process and stop fanning out.
+                    if not state["broken"] and logger is not None:
+                        logger.warning(
+                            "Worker pool broken; finishing in-process "
+                            "(single-threaded) from here on.", exc_info=True,
+                        )
+                    state["broken"] = True
+                    pooled = False
+                    results = worker_fn(spec, [to_payload(w) for w in ws])
+            else:
+                results = worker_fn(spec, payload)
+        spans.count("finish_chunks_pooled" if pooled else "finish_chunks_inline", 1)
         for w0, res in zip(ws, results):
             yield w0, _unwrap(res, swallow_errors, logger)
 
@@ -465,7 +473,8 @@ def map_items_mp(
     feeder.start()
     try:
         while True:
-            item = inflight.get()
+            with spans.span("feed_wait"):
+                item = inflight.get()
             if item is None:
                 break
             if type(item) is tuple and item[0] == "__exc__":

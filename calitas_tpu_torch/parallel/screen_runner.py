@@ -42,6 +42,7 @@ from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
+from calitas_tpu_torch import spans
 from calitas_tpu_torch.align.engine import SequentialAligner
 from calitas_tpu_torch.core.guide import Guide
 from calitas_tpu_torch.core.sequence import revcomp
@@ -139,7 +140,8 @@ def screened_search(
     try:
         nxt = stager.submit(stage_contig, names[0]) if names else None
         for idx in range(len(names)):
-            name, contig_len, genome = nxt.result()
+            with spans.span("stage_wait"):
+                name, contig_len, genome = nxt.result()
             nxt = (
                 stager.submit(stage_contig, names[idx + 1])
                 if idx + 1 < len(names)
@@ -147,11 +149,12 @@ def screened_search(
             )
             if genome is _SKIP:
                 continue
-            yield from _search_contig(
-                fasta, name, contig_len, genome, tasks, groups, aligner,
-                screen, window_size, threads, swallow_errors, hit_spec,
-                align_kwargs,
-            )
+            with spans.span("contig"):
+                yield from _search_contig(
+                    fasta, name, contig_len, genome, tasks, groups, aligner,
+                    screen, window_size, threads, swallow_errors, hit_spec,
+                    align_kwargs,
+                )
     finally:
         stager.shutdown(wait=True, cancel_futures=True)
 
@@ -282,15 +285,16 @@ def _launch_group(screen, genome, contig_len, step, pspec, group, aligner,
         aligner.min_guide_score(t.guide, align_kwargs["max_guide_diffs"])
         for _ti, t, _dq in group
     ]
-    if len(group) >= 2:
-        return screen.screen_contig_multi_async(
-            genome, contig_len, step,
-            [(dq, revcomp(dq)) for _ti, _t, dq in group], mss, pam_spec=pspec,
+    with spans.span("launch"):
+        if len(group) >= 2:
+            return screen.screen_contig_multi_async(
+                genome, contig_len, step,
+                [(dq, revcomp(dq)) for _ti, _t, dq in group], mss, pam_spec=pspec,
+            )
+        [(_ti, _t, dq)] = group
+        return screen.screen_contig_async(
+            genome, contig_len, step, dq, revcomp(dq), mss[0], pam_spec=pspec,
         )
-    [(_ti, _t, dq)] = group
-    return screen.screen_contig_async(
-        genome, contig_len, step, dq, revcomp(dq), mss[0], pam_spec=pspec,
-    )
 
 
 def _finish_segments(
@@ -315,7 +319,10 @@ def _finish_segments(
     def cand_stream():
         unscreened = False
         for i0, n_seg, fut in seg_futs:
-            res = None if unscreened or fut is None else fut.result()
+            res = None
+            if not unscreened and fut is not None:
+                with spans.span("segment_wait"):
+                    res = fut.result()
             if res is None:
                 unscreened = True
                 stats["cand"] += n_seg
@@ -323,25 +330,26 @@ def _finish_segments(
                 for c0 in range(0, n_seg, _CAND_BATCH):
                     yield ("__batch__", name, span[c0 : c0 + _CAND_BATCH], None, None)
                 continue
-            chain_flags, cranges = res
-            hit_idx = np.nonzero(chain_flags.any(axis=0))[0]
-            n_cand = len(hit_idx)
-            stats["cand"] += n_cand
-            if not n_cand:
-                continue
-            cstarts = starts[i0 + hit_idx]
-            sel = (
-                chain_flags[0, hit_idx].astype(np.uint8)
-                + 2 * chain_flags[1, hit_idx].astype(np.uint8)
-            )
-            # Widen the coarse range blocks back to 1-based column bounds
-            # (the worker trim-shifts, mirrors chain B and clips:
-            # align/batch.py::chain_ranges_to_pass).
-            cr = cranges[:, hit_idx, :].astype(np.int32) * rb
-            cr4 = np.stack(
-                [cr[0, :, 0] + 1, cr[0, :, 1] + rb,
-                 cr[1, :, 0] + 1, cr[1, :, 1] + rb], axis=1
-            )
+            with spans.span("candidates"):
+                chain_flags, cranges = res
+                hit_idx = np.nonzero(chain_flags.any(axis=0))[0]
+                n_cand = len(hit_idx)
+                stats["cand"] += n_cand
+                if not n_cand:
+                    continue
+                cstarts = starts[i0 + hit_idx]
+                sel = (
+                    chain_flags[0, hit_idx].astype(np.uint8)
+                    + 2 * chain_flags[1, hit_idx].astype(np.uint8)
+                )
+                # Widen the coarse range blocks back to 1-based column
+                # bounds (the worker trim-shifts, mirrors chain B and
+                # clips: align/batch.py::chain_ranges_to_pass).
+                cr = cranges[:, hit_idx, :].astype(np.int32) * rb
+                cr4 = np.stack(
+                    [cr[0, :, 0] + 1, cr[0, :, 1] + rb,
+                     cr[1, :, 0] + 1, cr[1, :, 1] + rb], axis=1
+                )
             for c0 in range(0, n_cand, _CAND_BATCH):
                 c1 = c0 + _CAND_BATCH
                 yield ("__batch__", name, cstarts[c0:c1], sel[c0:c1],

@@ -36,6 +36,7 @@ import time
 from pathlib import Path
 from typing import Optional, Sequence
 
+from calitas_tpu_torch import spans
 from calitas_tpu_torch.core.scoring import Defaults
 from calitas_tpu_torch.device import resolve_engine
 from calitas_tpu_torch.io.fasta import IndexedFasta, extract_dictionary
@@ -104,7 +105,9 @@ class ResidentSearcher:
                     if (fasta.sequence_length(name) or 0) < 2:
                         continue  # too short to search, as screened_search skips it
                     try:
-                        self._staged[name] = self._screen.stage(fasta.get_bases(name))
+                        with spans.span("stage_read", tally=True):
+                            bases = fasta.get_bases(name)
+                        self._staged[name] = self._screen.stage(bases)
                     except Exception as ex:
                         if not degradable(ex):
                             raise
@@ -187,16 +190,18 @@ class ResidentSearcher:
                 _prestaged={**self._staged, **dict.fromkeys(self._host_only, HOST_ONLY)},
             )
 
-        if output is not None:
-            _run(output)
-            return None
-        with tempfile.NamedTemporaryFile(mode="r", suffix=".tsv", delete=False) as fh:
-            tmp = Path(fh.name)
-        try:
-            _run(tmp)
-            return tmp.read_text()
-        finally:
-            tmp.unlink(missing_ok=True)
+        with spans.request():
+            if output is not None:
+                _run(output)
+                return None
+            with tempfile.NamedTemporaryFile(mode="r", suffix=".tsv", delete=False) as fh:
+                tmp = Path(fh.name)
+            try:
+                _run(tmp)
+                with spans.span("table_read"):
+                    return tmp.read_text()
+            finally:
+                tmp.unlink(missing_ok=True)
 
 
 def serve_stdio(searcher: ResidentSearcher, stdin=None, stdout=None) -> None:

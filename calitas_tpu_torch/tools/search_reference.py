@@ -32,12 +32,14 @@ contigs through ``run``'s underscored keywords.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import sys
 import time
 from pathlib import Path
 from typing import Optional, Sequence
 
+from calitas_tpu_torch import spans
 from calitas_tpu_torch.align.engine import SequentialAligner
 from calitas_tpu_torch.core.guide import Guide
 from calitas_tpu_torch.core.scoring import Defaults
@@ -112,8 +114,9 @@ def run(
 ) -> None:
     """Search ``ref`` for one guide (``guide`` + ``guide_id``) or several
     (``guide_specs``) and write the table to ``output`` (stdout if None).
-    With ``profile_dir`` a ``torch.profiler`` trace of the run is written
-    there as ``trace.json``.  ``process_index`` of ``process_count``
+    With ``profile_dir`` a ``torch.profiler`` trace of the run, with the
+    program's spans (``spans.py``) in it, is written there as
+    ``trace.json``.  ``process_index`` of ``process_count``
     searches only that process's whole-contig shard; with ``distributed``
     the process group is initialized from torch's environment
     (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, as
@@ -135,143 +138,156 @@ def run(
         mesh = tuple(mesh)
         if len(mesh) == 1:
             screen_device, mesh = resolve_device(mesh[0]), None
-    profiler = None
-    if profile_dir:
-        import torch.profiler as tp
-
-        activities = [tp.ProfilerActivity.CPU]
-        if screen_device is not None and screen_device.type == "cuda":
-            activities.append(tp.ProfilerActivity.CUDA)
-        profiler = tp.profile(activities=activities)
-        profiler.start()
-
-    ref = Path(ref)
-    dictionary = extract_dictionary(ref)  # required (SearchReference.scala:478-484)
-    ref_file = IndexedFasta(ref)
-    shard_contigs = _shard(dictionary, chrom, process_index, process_count)
-    aligner = SequentialAligner(
-        mismatch_net_cost=guide_mismatch_net_cost,
-        pam_mismatch_net_cost=pam_mismatch_net_cost,
-        genome_gap_net_cost=genome_gap_net_cost,
-        guide_gap_net_cost=guide_gap_net_cost,
-    )
-    max_total_diffs_actual = (
-        max_total_diffs
-        if max_total_diffs is not None
-        else max_guide_diffs + max_gaps_between_guide_and_pam + max_pam_mismatches
-    )
-    arguments = core_parameters_string(
-        max_variants, window_size, max_guide_diffs, max_pam_mismatches,
-        max_gaps_between_guide_and_pam, max_total_diffs_actual, max_overlap,
-        guide_mismatch_net_cost, pam_mismatch_net_cost, genome_gap_net_cost,
-        guide_gap_net_cost,
-    )
-    if guide_specs is None:
-        if guide is None or guide_id is None:
-            raise ValueError("Provide either guide+guide_id or guide_specs")
-        guide_specs = [(guide_id, guide, tuple(auxiliary_pams))]
-    specs = [
-        (gid, gstr, Guide.parse(gstr, aux)) for gid, gstr, aux in guide_specs
-    ]
-
-    # Completeness-guarantee check (SearchReference.scala:433-441): warn
-    # when custom costs can lose valid alignments.
-    mags = [abs(guide_mismatch_net_cost), abs(genome_gap_net_cost),
-            abs(guide_gap_net_cost)]
-    if (max_guide_diffs + 1) * min(mags) <= max_guide_diffs * max(mags):
-        logger.warning(
-            "Scoring constraint violated: (max-guide-diffs+1)*min_cost must "
-            "exceed max-guide-diffs*max_cost or alignments within the given "
-            "limits may be missed (min=%d max=%d max-guide-diffs=%d).",
-            min(mags), max(mags), max_guide_diffs,
+    with _profiled(profile_dir, screen_device), spans.request(), spans.span("run"):
+        ref = Path(ref)
+        dictionary = extract_dictionary(ref)  # required (SearchReference.scala:478-484)
+        ref_file = IndexedFasta(ref)
+        shard_contigs = _shard(dictionary, chrom, process_index, process_count)
+        aligner = SequentialAligner(
+            mismatch_net_cost=guide_mismatch_net_cost,
+            pam_mismatch_net_cost=pam_mismatch_net_cost,
+            genome_gap_net_cost=genome_gap_net_cost,
+            guide_gap_net_cost=guide_gap_net_cost,
         )
-
-    base_builder = HitBuilder(
-        guide_id=specs[0][0],
-        guide=specs[0][2],
-        ref=ref_file,
-        vcf=variants,
-        aligner_id="CALITAS:SearchReference",
-        arguments=arguments,
-    )
-    builders = {specs[0][0]: base_builder}
-    for gid, _, g in specs[1:]:
-        builders[gid] = base_builder.copy(guide_id=gid, guide=g)
-    align_kwargs = dict(
-        max_guide_diffs=max_guide_diffs,
-        max_pam_diffs=max_pam_mismatches,
-        max_gaps_between_guide_and_pam=max_gaps_between_guide_and_pam,
-        max_total_diffs=max_total_diffs_actual,
-        max_overlap=max_overlap,
-    )
-
-    def step_for(guide_str: str) -> int:
-        window_overlap = (
-            len(guide_str) + max_guide_diffs + max_gaps_between_guide_and_pam - 1
+        max_total_diffs_actual = (
+            max_total_diffs
+            if max_total_diffs is not None
+            else max_guide_diffs + max_gaps_between_guide_and_pam + max_pam_mismatches
         )
-        return window_size - window_overlap
-
-    if screen_device is not None and window_size > 2048:
-        from calitas_tpu_torch.ops.genome_screen import range_block
-
-        # Ranges stay on at any width but get coarser (range_block
-        # doubles past 2048 columns): each candidate's DP slice widens
-        # by up to a block per side.  Worth a note, not a warning.
-        logger.info(
-            "--window-size %d > 2048: end-column ranges use coarser "
-            "%d-column blocks (slightly wider finish DP slices).",
-            window_size, range_block(window_size),
+        arguments = core_parameters_string(
+            max_variants, window_size, max_guide_diffs, max_pam_mismatches,
+            max_gaps_between_guide_and_pam, max_total_diffs_actual, max_overlap,
+            guide_mismatch_net_cost, pam_mismatch_net_cost, genome_gap_net_cost,
+            guide_gap_net_cost,
         )
+        if guide_specs is None:
+            if guide is None or guide_id is None:
+                raise ValueError("Provide either guide+guide_id or guide_specs")
+            guide_specs = [(guide_id, guide, tuple(auxiliary_pams))]
+        specs = [
+            (gid, gstr, Guide.parse(gstr, aux)) for gid, gstr, aux in guide_specs
+        ]
 
-    # Parse and index the VCF once per run (SearchReference.scala:227-231);
-    # every guide and checkpointed contig queries the one index.
-    vcf_index = None
-    if variants is not None:
-        from calitas_tpu_torch.io.vcf import VcfIndex
-
-        vcf_index = _vcf_index if _vcf_index is not None else VcfIndex(variants)
-
-    progress = ProgressLogger(logger, noun="windows", verb="Processed", unit=25_000)
-
-    def search(contig: Optional[str], out: list) -> None:
-        """Both passes over ``contig`` (the whole genome when None)."""
-        if screen_device is None:
-            _run_both_passes(
-                contig, out, specs, builders, aligner, ref_file, vcf_index,
-                max_variants, window_size, step_for, threads, align_kwargs,
-                progress,
-            )
-        else:
-            _screened_passes(
-                contig, out, specs, builders, aligner, ref_file, vcf_index,
-                max_variants, window_size, step_for, threads, align_kwargs,
-                screen_device, mesh, _screen, _prestaged,
+        # Completeness-guarantee check (SearchReference.scala:433-441): warn
+        # when custom costs can lose valid alignments.
+        mags = [abs(guide_mismatch_net_cost), abs(genome_gap_net_cost),
+                abs(guide_gap_net_cost)]
+        if (max_guide_diffs + 1) * min(mags) <= max_guide_diffs * max(mags):
+            logger.warning(
+                "Scoring constraint violated: (max-guide-diffs+1)*min_cost must "
+                "exceed max-guide-diffs*max_cost or alignments within the given "
+                "limits may be missed (min=%d max=%d max-guide-diffs=%d).",
+                min(mags), max(mags), max_guide_diffs,
             )
 
-    logger.info("Aligning to reference genome without variants.")
-    hits: list = []
-    if checkpoint is not None:
-        if shard_contigs is not None:
-            contigs = shard_contigs
-        else:
-            contigs = [chrom] if chrom is not None else ref_file.names
-        _checkpointed(
-            checkpoint, search, contigs, hits, builders, base_builder, ref,
-            arguments, variants, chrom, process_index, process_count,
-            guide_specs,
+        base_builder = HitBuilder(
+            guide_id=specs[0][0],
+            guide=specs[0][2],
+            ref=ref_file,
+            vcf=variants,
+            aligner_id="CALITAS:SearchReference",
+            arguments=arguments,
         )
-    elif shard_contigs is not None:
-        for name in shard_contigs:
-            search(name, hits)
-    else:
-        search(chrom, hits)
+        builders = {specs[0][0]: base_builder}
+        for gid, _, g in specs[1:]:
+            builders[gid] = base_builder.copy(guide_id=gid, guide=g)
+        align_kwargs = dict(
+            max_guide_diffs=max_guide_diffs,
+            max_pam_diffs=max_pam_mismatches,
+            max_gaps_between_guide_and_pam=max_gaps_between_guide_and_pam,
+            max_total_diffs=max_total_diffs_actual,
+            max_overlap=max_overlap,
+        )
+
+        def step_for(guide_str: str) -> int:
+            window_overlap = (
+                len(guide_str) + max_guide_diffs + max_gaps_between_guide_and_pam - 1
+            )
+            return window_size - window_overlap
+
+        if screen_device is not None and window_size > 2048:
+            from calitas_tpu_torch.ops.genome_screen import range_block
+
+            # Ranges stay on at any width but get coarser (range_block
+            # doubles past 2048 columns): each candidate's DP slice widens
+            # by up to a block per side.  Worth a note, not a warning.
+            logger.info(
+                "--window-size %d > 2048: end-column ranges use coarser "
+                "%d-column blocks (slightly wider finish DP slices).",
+                window_size, range_block(window_size),
+            )
+
+        # Parse and index the VCF once per run (SearchReference.scala:227-231);
+        # every guide and checkpointed contig queries the one index.
+        vcf_index = None
+        if variants is not None:
+            from calitas_tpu_torch.io.vcf import VcfIndex
+
+            vcf_index = _vcf_index if _vcf_index is not None else VcfIndex(variants)
+
+        progress = ProgressLogger(logger, noun="windows", verb="Processed", unit=25_000)
+
+        def search(contig: Optional[str], out: list) -> None:
+            """Both passes over ``contig`` (the whole genome when None)."""
+            if screen_device is None:
+                _run_both_passes(
+                    contig, out, specs, builders, aligner, ref_file, vcf_index,
+                    max_variants, window_size, step_for, threads, align_kwargs,
+                    progress,
+                )
+            else:
+                _screened_passes(
+                    contig, out, specs, builders, aligner, ref_file, vcf_index,
+                    max_variants, window_size, step_for, threads, align_kwargs,
+                    screen_device, mesh, _screen, _prestaged,
+                )
+
+        logger.info("Aligning to reference genome without variants.")
+        hits: list = []
+        if checkpoint is not None:
+            if shard_contigs is not None:
+                contigs = shard_contigs
+            else:
+                contigs = [chrom] if chrom is not None else ref_file.names
+            _checkpointed(
+                checkpoint, search, contigs, hits, builders, base_builder, ref,
+                arguments, variants, chrom, process_index, process_count,
+                guide_specs,
+            )
+        elif shard_contigs is not None:
+            for name in shard_contigs:
+                search(name, hits)
+        else:
+            search(chrom, hits)
+        with spans.span("finalize"):
+            _finalize(hits, max_overlap, dictionary, output, run_start, specs)
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir, screen_device):
+    """With ``profile_dir``, a ``torch.profiler`` trace of the block (the
+    device's too on a CUDA ``screen_device``) with the program's spans
+    recording in it, written there as ``trace.json``."""
+    if not profile_dir:
+        yield
+        return
+    import torch.profiler as tp
+
+    activities = [tp.ProfilerActivity.CPU]
+    if screen_device is not None and screen_device.type == "cuda":
+        activities.append(tp.ProfilerActivity.CUDA)
+    profiler = tp.profile(activities=activities)
+    was_on = spans.enabled()
+    spans.enable()
+    profiler.start()
     try:
-        _finalize(hits, max_overlap, dictionary, output, run_start, specs)
+        yield
     finally:
-        if profiler is not None:
-            profiler.stop()
-            Path(profile_dir).mkdir(parents=True, exist_ok=True)
-            profiler.export_chrome_trace(str(Path(profile_dir) / "trace.json"))
+        profiler.stop()
+        if not was_on:
+            spans.disable()
+        Path(profile_dir).mkdir(parents=True, exist_ok=True)
+        profiler.export_chrome_trace(str(Path(profile_dir) / "trace.json"))
 
 
 def _in_process_group(run, kwargs: dict):
@@ -397,11 +413,12 @@ def _screened_passes(
         align_kwargs, device, mesh,
     )
     try:
-        _screened_reference_pass(
-            chrom, hits, specs, builders[specs[0][0]], aligner, ref_file,
-            window_size, step_for, threads, align_kwargs, device, mesh, screen,
-            prestaged,
-        )
+        with spans.span("reference_pass"):
+            _screened_reference_pass(
+                chrom, hits, specs, builders[specs[0][0]], aligner, ref_file,
+                window_size, step_for, threads, align_kwargs, device, mesh,
+                screen, prestaged,
+            )
         logger.info("Reference windows processed.")
         if feeds:
             _variant_pass(
@@ -649,7 +666,8 @@ def _finalize(hits, max_overlap, dictionary, output, run_start, specs):
     from calitas_tpu_torch.search.hits import dedup_sort_serialize
 
     logger.info("Sorting and Outputting.")
-    body, n_keep, n_fwd = dedup_sort_serialize(hits, max_overlap, dictionary)
+    with spans.span("dedup_sort_serialize"):
+        body, n_keep, n_fwd = dedup_sort_serialize(hits, max_overlap, dictionary)
     if n_keep:
         fwd_fraction = n_fwd / n_keep
         if fwd_fraction > 0.52 or fwd_fraction < 0.48:
@@ -659,14 +677,15 @@ def _finalize(hits, max_overlap, dictionary, output, run_start, specs):
             )
 
     header = "\t".join(fields_of(ReferenceHit)) + "\n"
-    if output is None or str(output) in ("-", "/dev/stdout"):
-        sys.stdout.write(header)
-        sys.stdout.write(body.decode("utf-8"))
-        sys.stdout.flush()
-    else:
-        with open(output, "wb") as out_fh:
-            out_fh.write(header.encode("utf-8"))
-            out_fh.write(body)
+    with spans.span("write"):
+        if output is None or str(output) in ("-", "/dev/stdout"):
+            sys.stdout.write(header)
+            sys.stdout.write(body.decode("utf-8"))
+            sys.stdout.flush()
+        else:
+            with open(output, "wb") as out_fh:
+                out_fh.write(header.encode("utf-8"))
+                out_fh.write(body)
 
     elapsed = time.perf_counter() - run_start
     total_bases = sum(e.length for e in dictionary) if dictionary else 0

@@ -1,7 +1,8 @@
 """The port's finish pool fans out: a PairwiseAlignSequences run with two
 worker processes and enough pairs to use them (``-t 2``, 320 pairs) on
 the gpu engine (plain screen on the CPU) gives the JAX package's
-host-engine table, and the pool never breaks.  The workers return
+host-engine table, the pool never breaks, and the program counts each chunk
+as pooled.  The workers return
 alignments holding a ``LazyCigar``; before it pickled, the pool broke on
 its first chunk and finished in-process.  The run is a script of its
 own: the pool's spawned workers re-import the main module."""
@@ -24,7 +25,7 @@ import json
 import logging
 import sys
 
-from calitas_tpu_torch import cli
+from calitas_tpu_torch import cli, spans
 from calitas_tpu_torch.parallel import host_pool
 
 
@@ -45,7 +46,7 @@ if __name__ == "__main__":
     pool = host_pool._SHARED_POOL
     print(json.dumps({"rc": rc, "pool": pool is not None,
                       "workers": host_pool._SHARED_POOL_SIZE,
-                      "warnings": warnings.seen}))
+                      "warnings": warnings.seen, "counts": spans.counts()}))
     if pool is not None:
         pool.shutdown(wait=True)
 '''
@@ -86,6 +87,9 @@ def test_pooled_pairwise_finish_does_not_break(tmp_path):
     assert report["rc"] == 0
     assert report["pool"] and report["workers"] == 2, report
     assert not any("Worker pool broken" in w for w in report["warnings"]), report
+    # every finish chunk ran in the pool, and was counted there
+    assert report["counts"].get("finish_chunks_pooled", 0) >= 4, report
+    assert "finish_chunks_inline" not in report["counts"], report
     pairwise.run(input=pairs, output=tmp_path / "jax.txt", threads=1, engine="host")
     want = (tmp_path / "jax.txt").read_bytes()
     assert (tmp_path / "port.txt").read_bytes() == want

@@ -132,11 +132,20 @@ def test_unported_features_raise(tmp_path, monkeypatch, capsys):
 
 
 def test_profile_dir_writes_a_trace(tmp_path):
+    """The trace holds the program's spans, which record for the run only."""
+    import json
+
+    from calitas_tpu_torch import spans
+
     guide, ref = _reference(tmp_path, 5, "3prime", n=5_000)
     port_sr.run(guide=guide, guide_id="g", ref=ref, output=tmp_path / "p.txt",
                 engine="gpu", device="cpu", threads=1,
                 profile_dir=str(tmp_path / "prof"))
-    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"calitas:request", "calitas:run", "calitas:contig"} <= names
+    assert not spans.enabled()
+    spans.drain()
 
 
 @pytest.mark.parametrize("window,engine,noted", [

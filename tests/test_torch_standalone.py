@@ -75,7 +75,7 @@ HOST_MODULES = (
     "core.sequence", "io.bgzf", "io.fasta", "io.tsv", "io.vcf", "native",
     "align.alignment", "align.batch", "align.engine", "align.guide_alignment",
     "align.oracle", "search.windows", "search.hits", "search.checkpoint",
-    "parallel.host_pool", "parallel.multihost", "tools.prepare_vcf",
+    "parallel.host_pool", "parallel.multihost", "tools.prepare_vcf", "spans",
 )
 
 
