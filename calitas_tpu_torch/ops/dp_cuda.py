@@ -2,7 +2,9 @@
 ``csrc/screen_rows.cu``): build, wrappers, launch counters and the static
 route between a kernel and its plain version.  The roofline probes
 (``csrc/probes.cu``, wrappers in :mod:`~calitas_tpu_torch.ops.probes`)
-are built, loaded and counted here too.
+and the PAM annotation (``csrc/pam_annotate.cu``, :func:`pam_annotate`,
+routed by :func:`annotates_on_kernel`) are built, loaded and counted here
+too.
 
 :func:`screen_dual` replaces ``calitas_tpu/ops/dp_pallas2.py::
 _pallas_screen_dual`` (kernel ``_kernel2``), :func:`screen_multi`
@@ -56,6 +58,13 @@ G_MAX = 65535
 DUAL_LANES = (1, 2)
 #: lanes per window the multi-guide kernel is built for (csrc/screen_multi.cu)
 MULTI_LANES = (1, 2, 4)
+#: the PAM annotation kernel's limits (csrc/pam_annotate.cu): PAMs per
+#: spec, bases per PAM, gap offsets, and PAM mismatches (the plain
+#: version compares uint8 counts, so it wraps a value outside 0..255)
+PAM_MAX_PAMS = 8
+PAM_MAX_LEN = 16
+PAM_MAX_GAP = 32
+PAM_MAX_MM = 255
 #: lanes per row and chain the row kernel is built for
 #: (csrc/screen_rows.cu::built), by mode: per-row queries (True) or one
 #: shared query (False)
@@ -67,6 +76,7 @@ SOURCES = {
     "screen_multi": _CSRC / "screen_multi.cu",
     "screen_rows": _CSRC / "screen_rows.cu",
     "probes": _CSRC / "probes.cu",
+    "pam_annotate": _CSRC / "pam_annotate.cu",
 }
 BUILD_DIR = _CSRC / "build"
 NVCC_FLAGS = (
@@ -79,7 +89,7 @@ NVCC_FLAGS = (
 launches = {
     name: 0
     for name in ("screen_dual", "screen_multi", "screen_rows", "ceiling_probe",
-                 "peak_probe")
+                 "peak_probe", "pam_annotate")
 }
 
 _libs: dict = {}
@@ -188,6 +198,13 @@ def _bind(lib: ctypes.CDLL, name: str) -> None:
         for fn in (lib.calitas_ceiling_probe, lib.calitas_peak_probe):
             fn.argtypes = [vp, i32, ll, i32, i32, vp, vp]  # tcols, T, N, Q, bias, out, stream
             fn.restype = i32
+    elif name == "pam_annotate":
+        lib.calitas_pam_annotate.argtypes = [
+            vp, vp, ll,  # genome, out, len
+            ctypes.POINTER(i32), ctypes.POINTER(i32), i32,  # masks, plens (host), n_pams
+            i32, i32, vp,  # max_mm, max_gap, stream
+        ]
+        lib.calitas_pam_annotate.restype = i32
     else:
         multi = [
             vp, ll, ll, ll, i32, i32,  # genome, len, base0, step, window, n
@@ -285,6 +302,62 @@ def _raise_on(lib, err: int, what: str):
     if err != 0:
         msg = lib.calitas_cuda_error_string(err).decode()
         raise KernelError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def annotates_on_kernel(pam_spec, device) -> bool:
+    """The static route of a PAM annotation for the encoded ``pam_spec``
+    ``(pam mask tuples, max_mm, max_gap)`` on ``device``, chosen before any
+    launch: True = :func:`pam_annotate`, False = the plain PyTorch version
+    (``genome_screen.annotate_genome_pam_reference``) on the same device:
+    the CPU, or a spec beyond the kernel's limits (:data:`PAM_MAX_PAMS`
+    PAMs of 1 to :data:`PAM_MAX_LEN` bases, max_gap 0 to
+    :data:`PAM_MAX_GAP`, max_mm 0 to :data:`PAM_MAX_MM`)."""
+    pams, max_mm, max_gap = pam_spec
+    return (
+        torch.device(device).type == "cuda"
+        and 1 <= len(pams) <= PAM_MAX_PAMS
+        and all(1 <= len(p) <= PAM_MAX_LEN for p in pams)
+        and 0 <= max_gap <= PAM_MAX_GAP
+        and 0 <= max_mm <= PAM_MAX_MM
+    )
+
+
+def pam_annotate(genome: torch.Tensor, pam_spec) -> torch.Tensor:
+    """The staged CUDA mask array ``genome`` with the PAM-gate bits 4/5 of
+    the encoded ``pam_spec`` stamped in, as a new tensor, in one kernel
+    pass on the device's current stream (contract:
+    ``genome_screen.annotate_genome_pam_reference``).  Raises ValueError
+    for a CPU tensor or a spec :func:`annotates_on_kernel` sends to the
+    plain version."""
+    if genome.dtype != torch.uint8 or genome.dim() != 1 or not genome.is_contiguous():
+        raise ValueError(
+            f"genome must be a contiguous 1-D uint8 tensor, got {genome.dtype} "
+            f"{tuple(genome.shape)}"
+        )
+    if not annotates_on_kernel(pam_spec, genome.device):
+        raise ValueError(
+            f"pam_annotate takes a CUDA tensor and a spec within the kernel's "
+            f"limits, got {genome.device} and {pam_spec}"
+        )
+    pams, max_mm, max_gap = pam_spec
+    dev = genome.device
+    out = torch.empty_like(genome)
+    if genome.numel() == 0:
+        return out
+    if genome.data_ptr() % 16:
+        genome = genome.clone()  # the kernel stages 16-byte chunks
+    rows = [list(p) + [0] * (PAM_MAX_LEN - len(p)) for p in pams]
+    masks = (ctypes.c_int * (len(pams) * PAM_MAX_LEN))(*(int(m) for r in rows for m in r))
+    plens = (ctypes.c_int * len(pams))(*(len(p) for p in pams))
+    lib = library("pam_annotate")
+    with torch.cuda.device(dev):
+        err = lib.calitas_pam_annotate(
+            genome.data_ptr(), out.data_ptr(), genome.numel(), masks, plens, len(pams),
+            int(max_mm), int(max_gap), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(lib, err, "pam_annotate")
+    _count_launch("pam_annotate")
+    return out
 
 
 def screen_dual(

@@ -3,8 +3,9 @@
 
 A contig's raw bytes are staged to the device once and IUPAC-encoded
 there; the PAM-gate bits 4/5 are stamped into that array once per screen
-(:func:`annotate_genome_pam`); then a DP kernel screens every window
-start ``0, step, 2*step, ...`` on both strands, and the per-chain flags
+(:func:`annotate_genome_pam`, one kernel pass on the card); then a DP
+kernel screens every window start ``0, step, 2*step, ...`` on both
+strands, and the per-chain flags
 (bit-packed) and coarse end-column ranges (uint8) come back to the host.
 One guide runs the dual-chain kernel; a group of same-length guides
 sharing a step and PAM spec runs the multi-guide kernel, one launch per
@@ -110,7 +111,18 @@ def annotate_genome_pam(genome: torch.Tensor, pam_spec) -> torch.Tensor:
     Positions outside the array read as mask 0 (a mismatch for every PAM
     base).  ``pam_spec`` is the encoded form of :func:`encode_pam_spec`.
 
-    Bit for bit the staged form of the reference
+    By the static rule of ``dp_cuda.annotates_on_kernel``: a CUDA tensor
+    with a spec within the kernel's limits runs ``csrc/pam_annotate.cu``
+    (one pass, ``dp_cuda.pam_annotate``), anything else
+    :func:`annotate_genome_pam_reference`; both give the same bits."""
+    if dp_cuda.annotates_on_kernel(pam_spec, genome.device):
+        return dp_cuda.pam_annotate(genome, pam_spec)
+    return annotate_genome_pam_reference(genome, pam_spec)
+
+
+def annotate_genome_pam_reference(genome: torch.Tensor, pam_spec) -> torch.Tensor:
+    """:func:`annotate_genome_pam` in plain PyTorch ops on the tensor's
+    device: bit for bit the staged form of the reference
     (``calitas_tpu.ops.genome_screen.annotate_genome_pam``), computed over
     the whole array at once instead of in chunks."""
     pams, max_mm, max_gap = pam_spec

@@ -145,7 +145,7 @@ class ResidentSearcher:
         if self.device is not None and self.device.type == "cuda":
             from calitas_tpu_torch.ops import dp_cuda
 
-            dp_cuda.build_all(("screen_dual", "screen_multi"))
+            dp_cuda.build_all(("screen_dual", "screen_multi", "pam_annotate"))
         dummy = ("ACGT" * 8)[: guide_length - 3] + "nrg"
         self.search(guide=dummy, guide_id="_warmup", output=os.devnull)
         logger.info("Warmup in %.1fs.", time.perf_counter() - t0)

@@ -9,8 +9,8 @@ Phases, each raising on failure:
 1. Device: a CUDA device is required; prints the card's name and power
    limit and whether the port's native host finish library loaded.
 2. Build: compiles the CUDA kernels from ``calitas_tpu_torch/csrc`` (the
-   three screens and the roofline probes), one nvcc per source, started
-   together, and prints the build time; every ``screen_dual`` instantiation
+   three screens, the roofline probes and the PAM annotation), one nvcc
+   per source, started together, and prints the build time; every ``screen_dual`` instantiation
    (Q 1-48 x lanes 1/2, L <= Q), every ``screen_multi`` one (Q 1-48 x
    lanes 1/2/4, L <= Q) and every ``screen_rows`` one (Q 1-48 x the
    lanes ``dp_cuda.rows_lanes`` lists in each mode) must be there and
@@ -109,7 +109,8 @@ Phases, each raising on failure:
    SearchReference on config 2's 2 Mb contig on the card and with
    ``--device cpu``: the tables must be identical, the route must be
    logged, the plain screen must have run on the card and no screen
-   kernel for it.
+   kernel for it; the PAM annotation, stamped before the screen's route
+   is chosen, must have launched once per contig.
 13. Roofline probes: the Q 20 probes' SASS must hold at least one max
    instruction per add+max pair of a column (nothing folded); each probe
    (``csrc/probes.cu``) must equal its plain
@@ -208,7 +209,17 @@ Phases, each raising on failure:
    of this card (``ShardedGenomeScreen``) must equal one span's flags and
    ranges (best of 3 each, in turns); with several cards visible, the
    bench through ``ShardedGenomeScreen(make_mesh())`` must give the
-   one-card table byte for byte, with its e2e and screen-alone times.
+   one-card table byte for byte, with its e2e and screen-alone times,
+   and launch ``pam_annotate`` once per card for each screen.
+
+19. PAM annotation (``csrc/pam_annotate.cu``): at 2^28 positions, each
+   benchmark cell's PAM spec through the kernel and the plain version,
+   equal byte for byte, both timed against the bytes bound; a resident
+   searcher at GRCh38's 25 contig lengths answers one SpCas9 request with
+   the route forced to the plain version and one through the kernel, in
+   turns, twice: the same table, one kernel launch per contig, and each
+   request's peak device memory; every staged contig annotated both ways,
+   equal byte for byte, with the summed times and bound.
 
 After every phase but 15, ``utils.DEGRADED`` must read zero: no screen
 fell back to the host.  After the phases, passed or not, it stops every process it started and
@@ -222,13 +233,13 @@ requests and phase 16's mesh goldens for the multi-guide kernel, the gpu
 runs of phases 10 and 11 for the row kernel, and for all three phase
 17's driven runs (``entry()``, ``screen_on_mesh``, the dry runs), and
 phase 18's bench runs for the dual kernel; phase 13's roofline run for
-the probes; the row
+the probes; phase 19's SpCas9 requests for the PAM annotation; the row
 kernel's times are those of the launcher's L at phase 9's shape (a), the
 list tools' per-row mode; each bound is that of the timed call's
 inputs); the last line is ``{"ok":
 true, "device": {...}}``.  Exits non-zero, without that line, when there
 is no CUDA device or the repository is missing.  ``--only 13 15 16 17
-18`` runs the build and those phases alone (see :func:`phases_alone`).
+18 19`` runs the build and those phases alone (see :func:`phases_alone`).
 """
 
 from __future__ import annotations
@@ -1580,7 +1591,10 @@ def long_guide(torch, dp_cuda, dp_screen, tmp: Path) -> None:
     from calitas_tpu_torch.io.fasta import IndexedFasta
 
     ref = goldens.build_ref(tmp, 2_000_000, 2, "c2ref")
-    bases = bytes(IndexedFasta(ref).get_bases("chr21"))
+    fasta = IndexedFasta(ref)
+    bases = bytes(fasta.get_bases("chr21"))
+    n_contigs = len(fasta.names)
+    fasta.close()
     p = next(p for p in range(500_000, len(bases))
              if bases[p + 51] in b"AG" and bases[p + 52] == ord("G"))
     guide = bases[p : p + 50].decode() + "nrg"
@@ -1613,8 +1627,13 @@ def long_guide(torch, dp_cuda, dp_screen, tmp: Path) -> None:
         raise AssertionError("the 50-base guide found no hit, not even its own site")
     if not any("50-base query" in r and "plain" in r for r in routes):
         raise AssertionError("the plain route of the 50-base guide was not logged")
-    if plain == 0 or any(launches.values()):
+    screens = {k: n for k, n in launches.items() if k.startswith("screen_")}
+    if plain == 0 or any(screens.values()):
         raise AssertionError("the 50-base guide did not run on the plain route alone")
+    # the PAM gate is stamped before the screen's route is chosen: once per contig
+    if launches["pam_annotate"] != n_contigs:
+        raise AssertionError(f"pam_annotate launched {launches['pam_annotate']} times, "
+                             f"want one per contig ({n_contigs})")
 
 
 #: the ceiling's wavefront edges (T, Q, bias): T < Q, T = Q, T = Q + 1,
@@ -1743,6 +1762,19 @@ SERVE_GUIDES = (GUIDE, "ACGTACATGCTCGATACGACnrg", "TTGACCAAGCAAAACAGACCnrg",
 SNV_SPACING = 3_100_000_000 // 3_000_000  # benchmarks/hg38_scale.py: 3 M SNVs over 3.1 Gb
 
 
+def fasta_record(np, fa, name: str, bases) -> None:
+    """Writes contig ``name``'s ``bases`` (uint8) to the open FASTA ``fa``
+    in 60-base lines."""
+    n = len(bases)
+    fa.write(f">{name}\n".encode())
+    full = n // 60
+    lines = np.full((full, 61), 10, np.uint8)  # newline in the last column
+    lines[:, :60] = bases[: full * 60].reshape(full, 60)
+    fa.write(memoryview(lines))
+    if n % 60:
+        fa.write(bases[full * 60 :].tobytes() + b"\n")
+
+
 def serve_inputs(np, tmp: Path, contigs) -> tuple:
     """Phase 14's reference (FASTA in 60-base lines, .fai, .dict) and VCF:
     seeded contigs with mutated sites of every request guide planted (the
@@ -1774,14 +1806,7 @@ def serve_inputs(np, tmp: Path, contigs) -> tuple:
                     seq = revcomp(seq)
                 pos = int(rng.integers(0, n - len(seq)))
                 bases[pos : pos + len(seq)] = np.frombuffer(seq.encode(), np.uint8)
-            fa.write(f">{name}\n".encode())
-            full = n // 60
-            lines = np.full((full, 61), 10, np.uint8)  # newline in the last column
-            lines[:, :60] = bases[: full * 60].reshape(full, 60)
-            fa.write(memoryview(lines))
-            if n % 60:
-                fa.write(bases[full * 60 :].tobytes() + b"\n")
-            del lines
+            fasta_record(np, fa, name, bases)
             entries.append(DictEntry(name=name, length=n, assembly="serve1g",
                                      md5=hashlib.md5(bases.tobytes()).hexdigest()))
             m = n // SNV_SPACING
@@ -2718,7 +2743,8 @@ def bench_at_1gb(torch, np, dp_cuda, dp_screen, gs, scorer, device, tmp: Path,
     launch must equal the plain version.  The screen alone at 2 and 4
     spans of this card must equal one span's flags and ranges; with
     several cards visible, the run over all of them must give the
-    one-card table byte for byte.  Prints the bench's JSON line and
+    one-card table byte for byte and launch ``pam_annotate`` once per card
+    for each screen of the contig.  Prints the bench's JSON line and
     breakdown, the widest launch's kernel and plain times (and bound, given
     the int32 rate ``peak``), and the span and card times.  Returns the
     driven runs' ``screen_dual`` launches and the comparison's
@@ -2860,11 +2886,140 @@ def bench_at_1gb(torch, np, dp_cuda, dp_screen, gs, scorer, device, tmp: Path,
             raise AssertionError(f"the table over {n_cards} cards differs from one card's")
         if res_k["launches"] != span_launches(n_cards):
             raise AssertionError(f"{n_cards} cards: {res_k['launches']} launches per run")
+        # the warm run, the timed runs and the screen alone each annotate
+        # the one contig once on every card's replica
+        want = (len(res_k["e2e_runs"]) + 2) * n_cards
+        if dp_cuda.launches["pam_annotate"] != want:
+            raise AssertionError(f"{n_cards} cards: pam_annotate launched "
+                                 f"{dp_cuda.launches['pam_annotate']} times, want {want}")
         log(f"[bench] {n_cards} cards: table == one card's ({res_k['kept']} rows); e2e best "
             f"{res_k['e2e_best']:.6f} s against {res['e2e_best']:.6f} s, screen alone "
-            f"{res_k['screen']:.6f} s against {res['screen']:.6f} s")
+            f"{res_k['screen']:.6f} s against {res['screen']:.6f} s; pam_annotate launches "
+            f"{want}, one per card per screen")
     os.remove(fasta)
     return launches, err
+
+
+#: phase 19's genome: the contigs of the benchmark's GRCh38 configuration
+GRCH38_CONFIG = ROOT / "perfbench" / "configs" / "grch38.json"
+#: the benchmark cells' PAM specs (dp-orientation PAMs, max_mm, max_gap):
+#: SpCas9's NRG and AsCas12a's TTTV at -p 1 -g 3
+CELL_PAMS = {"nrg": (("nrg",), 1, 3), "tttv": (("tttv",), 1, 3)}
+HBM_BYTES_PER_S = 3.35e12  # the H100's device memory (NVIDIA's data sheet)
+PAM_SHAPE = 1 << 28  # every contig over 134 Mb of GRCh38 and GRCm39 stages to this
+
+
+def grch38_reference(np, tmp: Path) -> Path:
+    """A FASTA (60-base lines, .fai, .dict) at GRCh38's contig lengths:
+    seeded ACGT with mutated sites of ``GUIDE``'s protospacer planted."""
+    import hashlib
+
+    from calitas_tpu_torch.io.fasta import DictEntry, SequenceDictionary, build_fai, dict_path_for
+
+    contigs = json.loads(GRCH38_CONFIG.read_text())["contigs"]
+    ref = tmp / "grch38.fa"
+    entries = []
+    with open(ref, "wb") as fa:
+        for k, (name, n) in enumerate(contigs):
+            bases = synthetic_genome(np, n, 1900 + k, [GUIDE[:20]])
+            fasta_record(np, fa, name, bases)
+            entries.append(DictEntry(name=name, length=n, assembly="grch38",
+                                     md5=hashlib.md5(bases.tobytes()).hexdigest()))
+    build_fai(ref)
+    SequenceDictionary(entries).write(dict_path_for(ref))
+    return ref
+
+
+def annotation_times(torch, dp_cuda, gs, genome, spec, reps: int) -> tuple:
+    """(kernel ms, plain ms) of one annotation of ``genome``; raises
+    unless the two outputs are equal byte for byte."""
+    got = dp_cuda.pam_annotate(genome, spec)
+    want = gs.annotate_genome_pam_reference(genome, spec)
+    if not torch.equal(got, want):
+        bad = (got != want).nonzero()[:5].flatten().tolist()
+        raise AssertionError(f"pam_annotate differs from the plain version at {bad} "
+                             f"(length {genome.numel()}, spec {spec})")
+    del got, want
+    return (cuda_time_ms(torch, lambda: dp_cuda.pam_annotate(genome, spec), reps),
+            cuda_time_ms(torch, lambda: gs.annotate_genome_pam_reference(genome, spec), 2))
+
+
+def pam_annotation(torch, np, dp_cuda, dp_screen, gs, scorer, device, tmp: Path) -> dict:
+    """Phase 19: the PAM annotation kernel (``csrc/pam_annotate.cu``)
+    against its plain version.  At 2^28 positions, each benchmark cell's
+    spec: equal byte for byte, both timed, against the bytes bound (the
+    array read once and written once at 3.35 TB/s).  Then a resident
+    searcher on a genome at GRCh38's 25 contig lengths: one SpCas9 request
+    (-d 3 -p 1 -g 3) with the route forced to the plain version and one
+    through the kernel, each after ``reset_peak_memory_stats``: the same
+    table, the kernel launched once per contig and the plain route never,
+    and each request's peak device memory; then every staged contig
+    annotated both ways, equal byte for byte, with the summed times and
+    bound.  Returns the kernel's launches, the 2^28 NRG times and bound."""
+    from calitas_tpu_torch.serve import ResidentSearcher
+
+    shape_ms = {}
+    gen = torch.Generator(device=device).manual_seed(19)
+    codes = torch.randint(0, 5, (PAM_SHAPE,), device=device, dtype=torch.uint8, generator=gen)
+    genome = torch.ones_like(codes) << codes.clamp_(max=3)  # A C G T, a fifth T
+    genome[:: 997] = 0  # some N
+    del codes
+    bound_ms = 2 * PAM_SHAPE / HBM_BYTES_PER_S * 1e3
+    for name, spec in CELL_PAMS.items():
+        ms, plain = annotation_times(torch, dp_cuda, gs, genome, gs.encode_pam_spec(spec), 20)
+        shape_ms[name] = (ms, plain)
+        log(f"[pam] 2^28 positions, {name} {spec}: kernel {ms:.4f} ms, plain {plain:.3f} ms; "
+            f"bound {bound_ms:.4f} ms (bytes): {100 * bound_ms / ms:.2f} % of the bound")
+    del genome
+
+    t0 = time.perf_counter()
+    ref = grch38_reference(np, tmp)
+    log(f"[pam] GRCh38-length reference written in {time.perf_counter() - t0:.1f} s")
+    searcher = ResidentSearcher(ref, engine="gpu", device=str(device), window_size=1000)
+    limits = dict(max_guide_diffs=3, max_pam_mismatches=1, max_gaps_between_guide_and_pam=3)
+    searcher.search(guide=GUIDE, guide_id="warm", output=str(tmp / "warm.txt"), **limits)
+    kernel_rule = dp_cuda.annotates_on_kernel
+    peaks, launches, tables = {}, {}, {}
+    for route in ("plain", "kernel", "plain", "kernel"):
+        if route == "plain":
+            dp_cuda.annotates_on_kernel = lambda _spec, _device: False
+        try:
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            dp_cuda.reset_launches()
+            out = tmp / f"grch38_{route}.txt"
+            searcher.search(guide=GUIDE, guide_id="g", output=str(out), **limits)
+            torch.cuda.synchronize(device)
+        finally:
+            dp_cuda.annotates_on_kernel = kernel_rule
+        peaks.setdefault(route, []).append(torch.cuda.max_memory_allocated(device))
+        launches.setdefault(route, []).append(dp_cuda.launches["pam_annotate"])
+        tables.setdefault(route, []).append(table_digest(out))
+    n_contigs = len(searcher._staged)
+    rows = tables["kernel"][0][0]
+    log(f"[pam] one GRCh38 request (-d 3 -p 1 -g 3), peak device memory: plain route "
+        f"{peaks['plain']} bytes, kernel {peaks['kernel']} bytes; pam_annotate launches "
+        f"{launches['plain']} / {launches['kernel']} ({n_contigs} contigs); table rows {rows}")
+    if len(set(tables["plain"] + tables["kernel"])) != 1:  # time stamps blanked
+        raise AssertionError("the plain and kernel routes gave different tables")
+    if launches["plain"] != [0, 0] or launches["kernel"] != [n_contigs] * 2:
+        raise AssertionError(f"pam_annotate launches {launches}, want 0 and {n_contigs}")
+
+    spec = gs.encode_pam_spec(CELL_PAMS["nrg"])
+    total_ms = total_plain = 0.0
+    staged_bytes = 0
+    for name, g in searcher._staged.items():
+        ms, plain = annotation_times(torch, dp_cuda, gs, g, spec, 5)
+        total_ms += ms
+        total_plain += plain
+        staged_bytes += g.numel()
+    set_bound = 2 * staged_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[pam] GRCh38's {n_contigs} staged contigs ({staged_bytes} bytes), nrg: equal byte for "
+        f"byte; kernel {total_ms:.4f} ms, plain {total_plain:.2f} ms, bound {set_bound:.4f} ms "
+        f"(bytes): {100 * set_bound / total_ms:.2f} % of the bound")
+    del searcher
+    return {"launches": sum(launches["kernel"]), "ms": shape_ms["nrg"][0],
+            "plain_ms": shape_ms["nrg"][1], "bound_ms": bound_ms}
 
 
 def own_processes() -> list:
@@ -3130,6 +3285,12 @@ def main() -> int:
             max_err = max(max_err, bench_err)
             phase_s["18 bench at 1 Gb"] = time.perf_counter() - t0
             no_degradation(utils, "18 bench at 1 Gb")
+
+            # 19. The PAM annotation kernel
+            t0 = time.perf_counter()
+            pam = pam_annotation(torch, np, dp_cuda, dp_screen, gs, scorer, device, tmp)
+            phase_s["19 PAM annotation"] = time.perf_counter() - t0
+            no_degradation(utils, "19 PAM annotation")
     finally:
         stop_processes(host_pool)
 
@@ -3153,6 +3314,8 @@ def main() -> int:
         **probe_ms,
     }
     bounds = {name: probes.bound_ms(ops, nbytes, peak) for name, (ops, nbytes) in work.items()}
+    timed["pam_annotate"] = (pam["ms"], pam["plain_ms"])
+    bounds["pam_annotate"] = (pam["bound_ms"], "bytes")
     for name, (b_ms, b_by) in bounds.items():
         log(f"[bounds] {name}: {timed[name][0]:.4f} ms against a bound of {b_ms:.4f} ms "
             f"({b_by}): {100 * b_ms / timed[name][0]:.2f} % of the bound")
@@ -3178,6 +3341,9 @@ def main() -> int:
          probe_launches["ceiling_probe"], probe_err),
         ("peak_probe", "probes.cu", "benchmarks/screen_ab.py:97",
          probe_launches["peak_probe"], probe_err),
+        # jnp ops in the JAX package, no Pallas kernel
+        ("pam_annotate", "pam_annotate.cu", "calitas_tpu/ops/genome_screen.py::annotate_genome_pam",
+         pam["launches"], 0),
     ]
     print(json.dumps({"kernels": [{
         "name": name,
@@ -3190,7 +3356,7 @@ def main() -> int:
         "plain_ms": timed[name][1],
         "bound_ms": bounds[name][0],
         "bound_by": bounds[name][1],
-        "library_ms": None,  # no single PyTorch call computes a DP screen or probe
+        "library_ms": None,  # no single PyTorch call computes a DP screen, probe or PAM gate
     } for name, source, replaces, launches, err in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -3201,10 +3367,10 @@ def main() -> int:
 
 
 def phases_alone(names: list) -> int:
-    """``python3 chip_smoke.py --only 13 15 16 17 18``: the build, then
+    """``python3 chip_smoke.py --only 13 15 16 17 18 19``: the build, then
     the named phases of 13 (the probes and the roofline), 15 (faults), 16
-    (mesh and ``--distributed``), 17 (entry points) and 18 (the bench at 1
-    Gb) alone, with their checks; phases 16, 17 and 18 also split over
+    (mesh and ``--distributed``), 17 (entry points), 18 (the bench at 1
+    Gb) and 19 (the PAM annotation) alone, with their checks; phases 16, 17 and 18 also split over
     every visible card when there are several (four cards).  Prints no
     kernels line."""
     import numpy as np
@@ -3228,7 +3394,7 @@ def phases_alone(names: list) -> int:
     dp_cuda.build_all(tuple(dp_cuda.SOURCES))
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     phases = {"13": probes_and_roofline, "15": faults_on_the_card, "16": mesh_and_distributed,
-              "17": entry_points, "18": bench_at_1gb}
+              "17": entry_points, "18": bench_at_1gb, "19": pam_annotation}
     try:
         with tempfile.TemporaryDirectory() as tmp:
             for name in names:

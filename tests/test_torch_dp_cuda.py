@@ -146,3 +146,93 @@ def test_multi_long_query_raises_on_cuda(cuda):
             base0=0, step=10, n_windows=5, window=100, pam_gate=False,
             emit_ranges=True, **SKW
         )
+
+
+# The PAM annotation kernel (csrc/pam_annotate.cu) against the plain
+# version.  The first four specs are tests/test_torch_genome_screen.py's
+# TestAnnotateGenomePam.SPECS (that file imports JAX, which the GPU test
+# machine does not have); then max_mm 0 and max_mm at and beyond the
+# PAM's length (the zero pad then fits), max_gap 0 and the kernel's
+# largest, one PAM and eight of sixteen bases, and a 16-base PAM at
+# max_mm 9, where only some windows fit.
+PAM_SPECS = [
+    (("nrg",), 1, 3),
+    (("ngg", "nag"), 1, 0),
+    (("tttv",), 0, 2),
+    (("nrg", "nnnrrt"), 2, 1),
+    (("nrg",), 0, 0),
+    (("tttv",), 4, 3),
+    (("nrg",), 255, dp_cuda.PAM_MAX_GAP),
+    (("acgtacgtacgtacgt", "nnnnnnnnnnnnnnnn"), 2, dp_cuda.PAM_MAX_GAP),
+    (tuple(("acgtrymkswbdhvnn" * 2)[i : i + 16] for i in range(dp_cuda.PAM_MAX_PAMS)), 5, 7),
+    (("acgtacgtacgtacgt", "nrg"), 9, 2),
+]
+#: the tile is 8,000 positions (csrc/pam_annotate.cu::kTile): 8,001 is not
+#: a multiple of it
+PAM_LENGTHS = (1, 7, 777, 4096, 8001, 100_003)
+
+
+def _staged(rng, n: int, any_byte: bool) -> np.ndarray:
+    """Staged masks of n bases (ACGT, N, a few IUPAC codes), or any byte
+    value, so bits 4-7 of the input must come through."""
+    if any_byte:
+        return rng.integers(0, 256, n, dtype=np.uint8)
+    return rng.choice(np.array([1, 2, 4, 8, 0, 5, 10, 15], np.uint8), n,
+                      p=[.22] * 4 + [.03] * 4)
+
+
+def _annotate_both(genome, spec):
+    from calitas_tpu_torch.ops.genome_screen import annotate_genome_pam_reference
+
+    launches = dp_cuda.launches["pam_annotate"]
+    got = dp_cuda.pam_annotate(genome, spec)
+    torch.cuda.synchronize(genome.device)
+    assert dp_cuda.launches["pam_annotate"] == launches + 1
+    return got, annotate_genome_pam_reference(genome, spec)
+
+
+@pytest.mark.parametrize("length", PAM_LENGTHS)
+@pytest.mark.parametrize("spec", PAM_SPECS)
+def test_pam_annotate_matches_plain_version(cuda, spec, length):
+    from calitas_tpu_torch.ops.genome_screen import encode_pam_spec
+
+    enc = encode_pam_spec(spec)
+    assert dp_cuda.annotates_on_kernel(enc, cuda)
+    rng = np.random.default_rng(length + 31 * len(spec[0]) + spec[1])
+    for any_byte in (False, True):
+        genome = torch.from_numpy(_staged(rng, length, any_byte)).to(cuda)
+        got, want = _annotate_both(genome, enc)
+        assert got.device == genome.device
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("spec", [(("nrg",), 1, 3), (("tttv",), 1, 3)])
+def test_pam_annotate_whole_staged_contig(cuda, spec):
+    """2^28 positions: every contig over 134 Mb of GRCh38 and GRCm39
+    stages to this length (the benchmark's traffic's specs)."""
+    from calitas_tpu_torch.ops.genome_screen import encode_pam_spec
+
+    genome = torch.from_numpy(_staged(np.random.default_rng(28), 1 << 28, False)).to(cuda)
+    got, want = _annotate_both(genome, encode_pam_spec(spec))
+    assert torch.equal(got, want)
+
+
+def test_pam_annotate_side_stream_second_device_and_offset_view(cuda):
+    """Launched on the current stream of the tensor's device: a side
+    stream, a tensor whose data is not 16-byte aligned, and the second
+    card where there is one."""
+    from calitas_tpu_torch.ops.genome_screen import encode_pam_spec
+
+    enc = encode_pam_spec((("nrg",), 1, 3))
+    rng = np.random.default_rng(5)
+    genome = torch.from_numpy(_staged(rng, 50_003, False)).to(cuda)
+    side = torch.cuda.Stream(device=cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        got, want = _annotate_both(genome[3:], enc)
+    assert torch.equal(got, want)
+    if torch.cuda.device_count() > 1:
+        other = torch.device("cuda", 1)
+        g1 = genome.to(other)
+        got, want = _annotate_both(g1, enc)
+        assert got.device == other and torch.equal(got, want)

@@ -97,6 +97,85 @@ class TestAnnotateGenomePam:
         assert port_gs.encode_pam_spec((("",), 1, 3)) is None
 
 
+class TestAnnotateRoute:
+    """The static route of ``annotate_genome_pam``: the CUDA kernel for a
+    CUDA tensor whose spec is within ``dp_cuda``'s limits, the plain
+    version for everything else, and no launch counted on the plain
+    route.  (The kernel against the plain version, bit for bit, is a card
+    test in tests/test_torch_dp_cuda.py.)"""
+
+    WITHIN = [
+        (("nrg",), 1, 3),
+        (("tttv",), 0, 0),
+        (("nnnnnnnnnnnnnnnn",) * 8, 255, 32),
+    ]
+    BEYOND = [
+        (("nrg",) * 9, 1, 3),  # 9 PAMs
+        (("nnnnnnnnnnnnnnnnn",), 1, 3),  # a 17-base PAM
+        (("nrg",), 1, 33),  # max_gap 33
+        (("nrg",), -1, 3),  # max_mm below 0: the plain version wraps it
+        (("nrg",), 256, 3),  # max_mm above 255: likewise
+    ]
+
+    @staticmethod
+    def _enc(spec):
+        pams, max_mm, max_gap = spec
+        enc = port_gs.encode_pam_spec((pams, 0, max_gap))
+        return enc[0], max_mm, max_gap
+
+    @pytest.mark.parametrize("spec", WITHIN)
+    def test_cuda_within_limits_takes_the_kernel(self, spec):
+        enc = self._enc(spec)
+        assert port_gs.dp_cuda.annotates_on_kernel(enc, "cuda")
+        assert port_gs.dp_cuda.annotates_on_kernel(enc, torch.device("cuda", 1))
+        assert not port_gs.dp_cuda.annotates_on_kernel(enc, "cpu")
+
+    @pytest.mark.parametrize("spec", BEYOND)
+    def test_beyond_limits_takes_the_plain_version(self, spec):
+        enc = self._enc(spec)
+        assert not port_gs.dp_cuda.annotates_on_kernel(enc, "cuda")
+        assert not port_gs.dp_cuda.annotates_on_kernel(enc, "cpu")
+
+    @pytest.mark.parametrize("spec", WITHIN + BEYOND)
+    def test_cpu_tensor_runs_the_plain_version_uncounted(self, spec):
+        enc = self._enc(spec)
+        masks = torch.from_numpy(TARGET_MASK_TABLE[_contig(5, 900)])
+        launches = dict(port_gs.dp_cuda.launches)
+        got = port_gs.annotate_genome_pam(masks, enc)
+        assert port_gs.dp_cuda.launches == launches
+        assert torch.equal(got, port_gs.annotate_genome_pam_reference(masks, enc))
+
+    @pytest.mark.parametrize("spec", WITHIN + BEYOND)
+    def test_route_follows_the_rule(self, spec, monkeypatch):
+        """With the rule evaluated as for a CUDA tensor, a spec within the
+        limits goes to ``dp_cuda.pam_annotate`` and one beyond them to the
+        plain version, which counts no launch."""
+        enc = self._enc(spec)
+        rule = port_gs.dp_cuda.annotates_on_kernel
+        called = []
+
+        def kernel(genome, pam_spec):
+            called.append(pam_spec)
+            return port_gs.annotate_genome_pam_reference(genome, pam_spec)
+
+        monkeypatch.setattr(port_gs.dp_cuda, "annotates_on_kernel",
+                            lambda s, _device: rule(s, "cuda"))
+        monkeypatch.setattr(port_gs.dp_cuda, "pam_annotate", kernel)
+        masks = torch.from_numpy(TARGET_MASK_TABLE[_contig(8, 300)])
+        launches = dict(port_gs.dp_cuda.launches)
+        got = port_gs.annotate_genome_pam(masks, enc)
+        assert called == ([enc] if spec in self.WITHIN else [])
+        assert port_gs.dp_cuda.launches == launches
+        assert torch.equal(got, port_gs.annotate_genome_pam_reference(masks, enc))
+
+    def test_kernel_wrapper_refuses_cpu_tensors(self):
+        enc = port_gs.encode_pam_spec((("nrg",), 1, 3))
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            port_gs.dp_cuda.pam_annotate(torch.zeros(64, dtype=torch.uint8), enc)
+        with pytest.raises(ValueError, match="1-D uint8"):
+            port_gs.dp_cuda.pam_annotate(torch.zeros(64, dtype=torch.int32), enc)
+
+
 class TestFlagBitPacking:
     @pytest.mark.parametrize("shape", [(2, 128), (2, 8192), (4, 2, 1024), (1, 8)])
     def test_roundtrip_and_matches_jax(self, shape):

@@ -187,7 +187,7 @@ class TestWrapper:
 
 
 def test_launch_counter_is_thread_safe():
-    """Eight threads count launches at once, as the variant feed and the
+    """Nine threads count launches at once, as the variant feed and the
     reference pass do: no increment is lost."""
     per_thread = 20_000
     saved = dict(dp_cuda.launches)
@@ -195,7 +195,7 @@ def test_launch_counter_is_thread_safe():
     sys.setswitchinterval(1e-6)
     try:
         dp_cuda.reset_launches()
-        start = threading.Barrier(8)
+        start = threading.Barrier(9)
 
         def count(name):
             start.wait(timeout=30)
@@ -205,7 +205,7 @@ def test_launch_counter_is_thread_safe():
         threads = [
             threading.Thread(target=count, args=(name,))
             for name in ["screen_multi"] * 3 + ["screen_dual"] * 2
-            + ["screen_rows", "ceiling_probe", "peak_probe"]
+            + ["screen_rows", "ceiling_probe", "peak_probe", "pam_annotate"]
         ]
         for t in threads:
             t.start()
@@ -215,7 +215,7 @@ def test_launch_counter_is_thread_safe():
         assert dp_cuda.launches == {
             "screen_multi": 3 * per_thread, "screen_dual": 2 * per_thread,
             "screen_rows": per_thread, "ceiling_probe": per_thread,
-            "peak_probe": per_thread,
+            "peak_probe": per_thread, "pam_annotate": per_thread,
         }
     finally:
         sys.setswitchinterval(interval)
