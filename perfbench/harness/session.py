@@ -14,16 +14,17 @@ Set-up is five timed steps, printed one line each:
 4. ``stage``: ``ResidentSearcher`` is built, which stages every contig from
    the FASTA on the device;
 5. ``warmup``: ``ResidentSearcher.warmup()`` (the kernels' build, the finish
-   pool's spawn), then one search of a guide of the cell's own traffic that
+   pool's spawn), then one search of a group of the cell's own traffic that
    the window does not send.
 
 ``setup_s`` runs from the process's start to the first timed request.  A
 ``torch.profiler`` trace of the window is taken with ``--trace 1``, and
 without it where an end-to-end metric is read from the trace.  The
-window is a closed loop with one client: the list's next guide is searched as
-soon as the last search returns, until ``seconds`` have passed; the window
-ends when the last search returns.  A search that raises, or that counts a
-degradation in ``utils.DEGRADED``, has failed.
+window is a closed loop with one client: the list's next group of
+``guides_per_request`` guides (one guide, or a ``guide_specs`` group) is
+searched as soon as the last search returns, until ``seconds`` have passed;
+the window ends when the last search returns.  A search that raises, or that
+counts a degradation in ``utils.DEGRADED``, has failed.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from perfbench.harness import spec, work
 from perfbench.harness.trace import TraceSummary, events_of, summarize
 from perfbench.harness.traffic import make_traffic
 from perfbench.reference.align import Limits, Scores
-from perfbench.reference.check import check_request
+from perfbench.reference.check import check_request, split_by_guide
 
 #: top-level modules that may not be loaded in a run: JAX and the JAX package
 FORBIDDEN = ("jax", "jaxlib", "flax", "calitas_tpu")
@@ -81,7 +82,7 @@ class Marks(logging.Handler):
 
 @dataclass
 class Request:
-    guide_id: str
+    guide_ids: tuple  # the guides of the search
     t0: float
     t1: float
     gbases: float  # genome bases x guides of the search, in 1e9
@@ -133,6 +134,29 @@ def limits(traffic: dict, search: dict, window: int) -> Limits:
     )
 
 
+def search_group(searcher, group: list, search: dict) -> str:
+    """The table of one request for the guides ``group``: one guide as
+    ``guide``/``guide_id``, more as one ``guide_specs`` group."""
+    if len(group) == 1:
+        g = group[0]
+        return searcher.search(guide=g.string, guide_id=g.id, output=None, **search)
+    return searcher.search(guide_specs=[(g.id, g.string, ()) for g in group], output=None,
+                           **search)
+
+
+def request_work(cfg: dict, lim: Limits, group: list) -> tuple:
+    """``(gbases, least_s)`` of a search for ``group``: genome bases x the
+    group's guides, in 1e9, and the least time on the card
+    (:func:`perfbench.harness.work.least_seconds`).  A traffic's guides have
+    one shape, so the first guide's is the group's."""
+    lengths = [n for _name, n in cfg["contigs"] if n >= 2]
+    window = cfg["searcher"]["window_size"]
+    g = group[0]
+    return (len(group) * sum(lengths) / 1e9,
+            work.least_seconds(lengths, lim.step(g.string), window, len(g.protospacer),
+                               guides=len(group)))
+
+
 def _sync(device) -> None:
     import torch
 
@@ -178,9 +202,7 @@ class Setup:
             _sync(device)
             t = self._step("stage", t)
             self.searcher.warmup()
-            w = self.traffic.warmup
-            self.searcher.search(guide=w.string, guide_id=w.id, output=None,
-                                 **cell.traffic["search"])
+            search_group(self.searcher, self.traffic.warmup, cell.traffic["search"])
             _sync(device)
             self._step("warmup", t)
         except BaseException:
@@ -205,18 +227,14 @@ def measure(setup: Setup, cell: spec.Cell, seconds: float, search: dict, marks: 
 
     from calitas_tpu_torch import utils
 
-    cfg = cell.config
-    lengths = [n for _name, n in cfg["contigs"] if n >= 2]
-    gbases = sum(lengths) / 1e9
-    window = cfg["searcher"]["window_size"]
-    lim = limits(cell.traffic, search, window)
-    guides = setup.traffic.guides
-    least = {g.id: work.least_seconds(lengths, lim.step(g.string), window, len(g.protospacer))
-             for g in guides}
+    lim = limits(cell.traffic, search, cell.config["searcher"]["window_size"])
+    groups = setup.traffic.groups
+    work_of = [request_work(cell.config, lim, group) for group in groups]
     requests = []
     deadline = time.perf_counter() + seconds
     while not requests or time.perf_counter() < deadline:
-        g = guides[len(requests) % len(guides)]
+        k = len(requests) % len(groups)
+        group = groups[k]
         marks.records = []
         degraded = sum(utils.DEGRADED.values())
         table = error = None
@@ -225,14 +243,13 @@ def measure(setup: Setup, cell: spec.Cell, seconds: float, search: dict, marks: 
         t0 = time.perf_counter()
         with span:
             try:
-                table = setup.searcher.search(guide=g.string, guide_id=g.id, output=None,
-                                              **search)
+                table = search_group(setup.searcher, group, search)
             except Exception as ex:  # noqa: BLE001 - a failed request is counted, not fatal
                 error = repr(ex)
         t1 = time.perf_counter()
         if error is None and sum(utils.DEGRADED.values()) != degraded:
             error = f"degraded: {dict(utils.DEGRADED)}"
-        requests.append(Request(g.id, t0, t1, gbases, least[g.id], error, table,
+        requests.append(Request(tuple(g.id for g in group), t0, t1, *work_of[k], error, table,
                                 marks.records))
     return requests
 
@@ -243,19 +260,24 @@ def check(setup: Setup, cell: spec.Cell, requests: list) -> dict:
     guides = {g.id: g for g in setup.traffic.guides}
     totals = {"rows_wrong": 0, "planted_missed": 0, "searched_missed": 0, "table_faults": 0}
     rows = planted = searched = 0
-    notes = [f"{r.guide_id}: {r.error}" for r in requests if r.error is not None][:5]
+    notes = [f"{','.join(r.guide_ids)}: {r.error}" for r in requests
+             if r.error is not None][:5]
     for r in requests:
         if r.error is not None:
             continue
-        g = guides[r.guide_id]
-        out = check_request(r.table, g.id, g.string, g.plants, setup.genome.fetch,
-                            setup.genome.lengths, setup.genome.order, setup.scores, lim,
-                            g.slices)
-        for k in totals:
-            totals[k] += out[k]
-        rows, planted = rows + out["rows"], planted + out["planted"]
-        searched += out["searched"]
-        notes += out["notes"][: max(0, 10 - len(notes))]
+        tables, foreign, more = split_by_guide(r.table, r.guide_ids)
+        totals["table_faults"] += foreign
+        notes += more[: max(0, 10 - len(notes))]
+        for gid, table in tables.items():
+            g = guides[gid]
+            out = check_request(table, g.id, g.string, g.plants, setup.genome.fetch,
+                                setup.genome.lengths, setup.genome.order, setup.scores, lim,
+                                g.slices)
+            for k in totals:
+                totals[k] += out[k]
+            rows, planted = rows + out["rows"], planted + out["planted"]
+            searched += out["searched"]
+            notes += out["notes"][: max(0, 10 - len(notes))]
     failed = sum(r.error is not None for r in requests)
     checks = {"failed_requests": failed, **totals}
     return {"checks": {k: {"value": v, "limit": 0} for k, v in checks.items()},

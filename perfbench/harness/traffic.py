@@ -8,6 +8,10 @@ reference applies besides (``max_overlap``; ``max_total_diffs`` is upstream's
 sum of the three limits), how many guides the list holds, and the edited
 copies planted of each guide (``plants``: mismatches, guide bulges, genome
 bulges, genome bases between protospacer and PAM, PAM mismatches).
+``guides_per_request`` (default 1) sends that many guides of the list in one
+request, as one ``guide_specs`` group; the list's length is a multiple of it.
+Every guide of a file has the file's one shape, so a group is one screen
+group of the program (one DP-query length, step and PAM).
 
 Each guide's protospacer is the genome's own bases at a seeded position, and
 a PAM that the guide accepts is written beside it there: its site.  Each
@@ -59,8 +63,26 @@ class Guide:
 @dataclass
 class Traffic:
     guides: list
-    warmup: Guide
+    #: the guides of set-up's search, one group: ``warmup`` where a request
+    #: holds one guide, else ``warmup0`` ... ``warmup{G-1}``
+    warmup: list
     writes: dict  # {contig: [(start, bytes)]}: the planted sites, forward strand
+
+    @property
+    def groups(self) -> list:
+        """The requests' groups of guides, in the list's order."""
+        g = len(self.warmup)
+        return [self.guides[i : i + g] for i in range(0, len(self.guides), g)]
+
+
+def guides_per_request(spec: dict) -> int:
+    """The traffic's ``guides_per_request``; raises where the list's
+    ``guides`` are not a whole number of such groups."""
+    g = spec.get("guides_per_request", 1)
+    if not isinstance(g, int) or g < 1 or spec["guides"] % g:
+        raise ValueError(f"traffic {spec.get('name')!r}: guides_per_request {g!r} has to be "
+                         f"a whole number of 1 or more that divides its {spec['guides']} guides")
+    return g
 
 
 def rng_for(seed: int, salt: str) -> np.random.Generator:
@@ -166,6 +188,7 @@ def make_traffic(contigs, spec: dict, seed: int, scores, window: int) -> Traffic
     (:func:`perfbench.harness.genome.layout`) for ``seed``; ``scores`` is the
     reference's :class:`~perfbench.reference.align.Scores` and ``window``
     upstream's window size."""
+    per_request = guides_per_request(spec)
     rng = rng_for(seed, "traffic")
     shape = spec["guide"]
     q, pam, pam5 = shape["protospacer"], shape["pam"], shape["pam_side"] == "5prime"
@@ -240,4 +263,5 @@ def make_traffic(contigs, spec: dict, seed: int, scores, window: int) -> Traffic
             c = places.contig()
             guide.slices.append((c.name, max(c.length - search["tail_bases"], 0), c.length))
         guides.append(guide)
-    return Traffic(guides, new_guide("warmup"), writes)
+    ids = ["warmup"] if per_request == 1 else [f"warmup{k}" for k in range(per_request)]
+    return Traffic(guides, [new_guide(i) for i in ids], writes)

@@ -12,7 +12,9 @@ by searching the request's slices of the genome itself (:func:`search_slice`).  
 serialization: the table has the columns, the request's guide on every row,
 upstream's order (contig in dictionary order, start, strand, score
 descending), and no two neighbouring rows of one contig and strand overlap by
-``max_overlap`` bases or more.
+``max_overlap`` bases or more.  A group's table is split by its
+``guide_id`` column (:func:`split_by_guide`) and each guide's part is held to
+that guide.
 
 Each number compared is a count whose limit is 0.
 """
@@ -39,6 +41,32 @@ from perfbench.reference.align import (
 #: genome bases of the DP context before a row's last guide base, beyond the
 #: protospacer: room for every gap the limits allow and more
 DP_SLACK = 12
+
+
+def split_by_guide(table: str, guide_ids) -> tuple:
+    """``({guide id: table}, foreign rows, notes)`` of a group's table: each
+    guide's rows under the header, in the table's order.  A row whose
+    ``guide_id`` is none of ``guide_ids`` is foreign; a table without that
+    column goes whole to every guide, whose check finds the columns missing."""
+    lines = table.split("\n")
+    header = lines[0].split("\t")
+    if "guide_id" not in header:
+        return dict.fromkeys(guide_ids, table), 0, []
+    col = header.index("guide_id")
+    parts = {g: [lines[0]] for g in guide_ids}
+    foreign, notes = 0, []
+    for line in lines[1:]:
+        if not line:
+            continue
+        f = line.split("\t")
+        gid = f[col] if col < len(f) else ""
+        if gid in parts:
+            parts[gid].append(line)
+        else:
+            foreign += 1
+            if len(notes) < 5:
+                notes.append(f"row of guide {gid!r} in the table of {','.join(guide_ids)}")
+    return {g: "\n".join(ls) + "\n" for g, ls in parts.items()}, foreign, notes
 
 
 def check_request(table: str, guide_id: str, guide: str, plants, fetch, lengths: dict,

@@ -8,7 +8,7 @@ from perfbench.harness.trace import Event, summarize
 
 
 def request(t0, wall, gbases=3.0, least=0.008, error=None, marks=()):
-    return Request("g", t0, t0 + wall, gbases, least, error, "", list(marks))
+    return Request(("g",), t0, t0 + wall, gbases, least, error, "", list(marks))
 
 
 def read(name, w):
@@ -75,3 +75,21 @@ def test_trace_busy_idle_gaps_and_top_operations():
     assert read("device_ms_per_gbase", w) == pytest.approx(1e3 * 0.5 / 6.0)
     assert read("device_roofline_pct", w) == pytest.approx(100 * 0.02 / 0.5)
     assert read("device_idle_pct", w) == pytest.approx(75.0)
+
+
+def test_a_group_counts_its_guides_in_gbases_and_least_time():
+    import json
+    from pathlib import Path
+
+    from perfbench.harness.session import limits, request_work
+    from perfbench.harness.traffic import Guide
+
+    root = Path(__file__).resolve().parents[2]
+    cfg = json.loads((root / "perfbench/configs/grch38.json").read_text())
+    tr = json.loads((root / "perfbench/traffic/d3_four_spcas9.json").read_text())
+    lim = limits(tr, tr["search"], cfg["searcher"]["window_size"])
+    guides = [Guide(f"g{i}", "ACGTACGTACGTACGTACGT" + "nrg", "ACGTACGTACGTACGTACGT")
+              for i in range(4)]
+    one, four = request_work(cfg, lim, guides[:1]), request_work(cfg, lim, guides)
+    assert one[0] == pytest.approx(3.088286401) and four[0] == pytest.approx(4 * one[0])
+    assert four[1] == pytest.approx(4 * one[1], rel=1e-12)

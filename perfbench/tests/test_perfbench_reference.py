@@ -13,7 +13,7 @@ from perfbench.reference.align import (
     revcomp,
     windows_holding,
 )
-from perfbench.reference.check import DP_SLACK, check_request, search_slice
+from perfbench.reference.check import DP_SLACK, check_request, search_slice, split_by_guide
 
 S = Scores.from_net_costs(-120, -260, -122, -121)
 LIM = Limits(3, 1, 3, 7, 10, window=1000)
@@ -191,3 +191,30 @@ def test_the_reference_search_finds_the_sites_and_a_missing_row():
     dropped = check_request(table([minus_row()]), "g1", GUIDE, [], fetch, LENGTHS,
                             {"chr1": 0}, S, LIM, slices)
     assert dropped["searched_missed"] == 1
+
+
+def test_a_group_table_splits_by_guide_in_order():
+    g2 = row(guide_id="g2", coordinate_start="2000", coordinate_end="2021")
+    rows = [row(), g2, minus_row(), minus_row(guide_id="g2", coordinate_start="4000")]
+    tables, foreign, notes = split_by_guide(table(rows), ("g1", "g2", "g3"))
+    assert foreign == 0 and notes == []
+    assert tables["g1"] == table([row(), minus_row()])
+    assert tables["g2"] == table([g2, minus_row(guide_id="g2", coordinate_start="4000")])
+    assert tables["g3"] == table([])
+    plants = [("chr1", "+", 1000, 1021, 1469), ("chr1", "-", 3003, 3023, 1590)]
+    out = check_request(tables["g1"], "g1", GUIDE, plants, fetch, LENGTHS, {"chr1": 0}, S, LIM)
+    assert (out["rows_wrong"], out["planted_missed"], out["table_faults"]) == (0, 0, 0)
+    missed = check_request(tables["g3"], "g3", GUIDE, plants, fetch, LENGTHS, {"chr1": 0}, S,
+                           LIM)
+    assert missed["planted_missed"] == 2
+
+
+def test_a_row_of_a_guide_outside_the_group_is_a_table_fault():
+    tables, foreign, notes = split_by_guide(table([row(), row(guide_id="g9")]), ("g1", "g2"))
+    assert foreign == 1 and "g9" in notes[0]
+    assert tables["g1"] == table([row()]) and tables["g2"] == table([])
+    bare = "chromosome\tscore\nchr1\t1\n"
+    tables, foreign, _notes = split_by_guide(bare, ("g1", "g2"))
+    assert foreign == 0 and tables == {"g1": bare, "g2": bare}
+    out = check_request(bare, "g1", GUIDE, [], fetch, LENGTHS, {"chr1": 0}, S, LIM)
+    assert out["table_faults"] == 1

@@ -80,7 +80,7 @@ def test_no_split_without_the_program_spans_in_the_trace():
 
 
 def _request(t0, t1, gbases=2.0):
-    return Request("g", t0, t1, gbases, 0.001, None, "", [])
+    return Request(("g",), t0, t1, gbases, 0.001, None, "", [])
 
 
 def test_counter_metrics_read_the_window_searches_only():
